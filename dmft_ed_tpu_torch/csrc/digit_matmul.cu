@@ -1,13 +1,13 @@
 // Ozaki int8 digit matmul for Hopper (sm_90a), plain C interface for ctypes.
 //
-// Replaces: dmft_ed_tpu/pallas_kernels.py `_digit_matmul_kernel` (launched by
-// `digit_matmul_tiles`, wrapped by `matmul_fused`). The JAX package runs the
-// same sum as the XLA composition in dmft_ed_tpu/ozaki.py (`_cat_groups` /
-// `_pairwise` + `_group_combine`); this kernel follows that composition's
-// schedule and epilogue exactly, so its result is bit-identical to the plain
-// version in kernels/digit_matmul.py.
+// Replaces: dmft_ed_tpu/pallas_kernels.py:37 `_digit_matmul_kernel`
+// (launched by `digit_matmul_tiles`, wrapped by `matmul_fused`). The JAX
+// package runs the same sum as the XLA composition in dmft_ed_tpu/ozaki.py
+// (`_cat_groups` / `_pairwise` + `_group_combine`); this kernel follows that
+// composition's schedule and epilogue exactly, so its result is
+// bit-identical to the plain version in kernels/digit_matmul.py.
 //
-// What one block computes — a [TM, TN] tile of
+// What one block computes -- a tile of
 //     out[i, j] = ((f64(hi) + f64(lo)) * rs[i]) * cs[j]
 // where (hi, lo) is a TwoSum-compensated f32 pair accumulating, ascending
 // in s = 0..P-1, the exact int32 digit products at scale 2^{-bits(s+2)}:
@@ -23,34 +23,67 @@
 //     err = (hi - (t - bp)) + (x - bp); hi = t; lo = (lo + err) + glo*sc
 // Every step uses the _rn intrinsics (and the file is built with
 // -fmad=false) so nothing is contracted into an FMA or reassociated: the
-// error-free transform stays error-free. Unlike the Pallas kernel, g is
-// never cast to f32 whole: group sums reach ~2e7 > 2^24 at K=924, P=5.
+// error-free transform stays error-free. g is never cast to f32 whole:
+// group sums reach ~2e7 > 2^24 at K=924, P=5. The int32 sums are exact in
+// any order, so summing them on the tensor cores changes no bit.
 //
-// Layout: ad [P, M, K] int8 and bd [P, K, N] int8, both row-major and
-// contiguous; rs [M], cs [N] f64; out [M, N] f64. M, N and K are ragged
-// (924 is no tile multiple): edges are masked on load and store, nothing
-// is padded in device memory.
+// Layout: ad [P, M, Kp] and bd [P, N, Kp] int8, both K-major (row-major
+// with the contraction axis last) and contiguous, Kp a multiple of 16 and
+// zero past the true K; rs [M], cs [N] f64; out [M, N] f64. The 8-bit
+// tensor-core instructions take both operands K-major only, and TMA needs
+// 16-byte global strides: ozaki.py builds the stacks so, writing the right
+// operand's digits transposed straight into its zero-padded buffer (no
+// in-kernel byte transpose).
 //
-// Bound on this card: at the slice's shapes (M=924, K=924, N=4096, P=5)
-// one call is 2*15*M*N*K ~ 1.05e11 int8 operations against ~54 MB of
-// traffic, i.e. operation-bound (~53 us at the 1,979 TOPS int8 data-sheet
-// peak vs ~16 us of bytes at 3.35 TB/s). Design: the simple first version —
-// 64x64 output tiles, 256 threads with 4x4 outputs each, the K loop staged
-// through shared memory 32 bytes deep, __dp4a on packed int8x4 words with
-// exact int32 accumulation, the f32 pair held in registers. It runs on the
-// integer pipe, not the tensor cores; mma/wgmma with TMA is later work.
+// Bound on this card: 2 * P(P+1)/2 * M*N*K int8 operations (true K, not
+// Kp) over the 1,979 TOPS int8 tensor-core peak. At the main path's 924
+// class (M=924, K=924, N=4096, P=5) that is 1.05e11 operations, 53 us,
+// against ~54 MB of traffic, 16 us at 3.35 TB/s: operation-bound. What the
+// design does about it:
+//   * tensor cores: wgmma.mma_async m64n128k32 .s32.s8.s8 (never
+//     .satfinite: the schedule keeps the sums exact, saturation would hide
+//     a wrap), both operands from shared memory, 128B swizzle, K-major;
+//   * operand feed: one producer thread per CTA issues TMA loads of
+//     128-byte-deep A and B tiles into a ring of STAGES = 4 shared-memory
+//     stages, completed on mbarriers (full: bytes arrived; empty: every
+//     consumer warpgroup of the cluster done reading). Ragged M and N
+//     edges come from TMA's out-of-bounds zero fill; the padded Kp
+//     handles the contraction tail;
+//   * L2 feed: a 128x128 tile streams 15 x 8 k-tiles of 32 KB at the 924
+//     class, ~1 GB per call from L2. Two CTAs along N form a cluster and
+//     share the A tile: each loads half of it and multicasts it to both,
+//     so a CTA reads 24 KB per k-tile instead of 32;
+//   * schedule: the producer streams k-tiles in the order (s, p, ktile),
+//     A_p against B_{s-p}. Per group s the first wgmma runs with scale-d
+//     = 0; after the last the consumer waits (wgmma.wait_group 0) and
+//     combines its int32 fragment into (hi, lo) in registers. P=5 at
+//     K=924 is 15 * 8 = 120 k-tiles per output tile, so the ring stays
+//     full across group boundaries;
+//   * registers: accumulator + hi + lo is 3 registers per output, 192 per
+//     thread for a 64x128 warpgroup tile. Two consumer warpgroups make a
+//     128x128 CTA tile (8 x 32 = 256 tiles at 924x4096 on 132 SMs);
+//     setmaxnreg gives the producer warpgroup 40 registers and each
+//     consumer 232;
+//   * epilogue: f64 ((hi + lo) * rs) * cs with __dadd_rn / __dmul_rn,
+//     straight from the fragment, masked at the ragged edges; each output
+//     written once, 16 bytes per thread per column pair, full 32-byte
+//     sectors per warp.
+// Measured on an H100 (PERF.md, bench_digit_matmul.py): 4 stages beat 3,
+// 5 and 6, and the 2-CTA cluster beats one CTA. Arriving once per
+// warpgroup with the default (CTA-scope) semantics, and not per warp
+// with .release.cluster, is what makes the cluster pay at all. A 2x2
+// cluster that shares B too, skipping the zero-fill k32 steps past Kp,
+// and 256-byte-deep stages were all slower.
+// Pairwise schedule: its chunk boundaries (kchunk, any length) do not fall
+// on the 32-byte MMA depth, so it keeps the first kernel's __dp4a route on
+// the same K-major layout, for pairwise == 1 only. The main path never
+// takes it: it needs P*K*D^2 >= 2^31, K > 101,650 at 5x7.
 
 #include <cstdint>
+#include <cuda.h>
 #include <cuda_runtime.h>
 
 namespace {
-
-constexpr int TM = 64;
-constexpr int TN = 64;
-constexpr int BK = 32;             // contraction bytes per shared-memory slab
-constexpr int KW = BK / 4;         // packed int8x4 words per slab row
-constexpr int LDS = KW + 1;        // padded shared row: spreads the banks
-constexpr int THREADS = 256;       // 16 x 16 threads, 4 x 4 outputs each
 
 __device__ __forceinline__ void combine(float& hi, float& lo, int g,
                                         float sc) {
@@ -65,18 +98,357 @@ __device__ __forceinline__ void combine(float& hi, float& lo, int g,
   lo = __fadd_rn(__fadd_rn(lo, err), __fmul_rn(glo, sc));
 }
 
-__device__ __forceinline__ int pack_byte(int8_t v, int b) {
-  return static_cast<int>(static_cast<uint8_t>(v)) << (8 * b);
+__device__ __forceinline__ double epilogue(float hi, float lo, double rsc,
+                                           double csc) {
+  const double v = __dadd_rn(static_cast<double>(hi), static_cast<double>(lo));
+  return __dmul_rn(__dmul_rn(v, rsc), csc);
+}
+
+// ------------------------------------------------------------------------
+// Tensor-core route: the concatenated schedule (pairwise == 0).
+
+constexpr int BM = 128;                  // CTA tile rows: 2 x 64
+constexpr int BN = 128;                  // CTA tile columns: one n128 wgmma
+constexpr int BK = 128;                  // k bytes per stage = swizzle span
+// Ring depth and cluster size; the defaults are the measured best, and
+// bench_digit_matmul.py rebuilds the kernel with others to time them.
+#ifndef DIGIT_MATMUL_STAGES
+#define DIGIT_MATMUL_STAGES 4
+#endif
+#ifndef DIGIT_MATMUL_CLUSTER
+#define DIGIT_MATMUL_CLUSTER 2
+#endif
+constexpr int STAGES = DIGIT_MATMUL_STAGES;
+constexpr int CLUSTER = DIGIT_MATMUL_CLUSTER;  // CTAs along N sharing A
+static_assert(CLUSTER == 1 || CLUSTER == 2 || CLUSTER == 4,
+              "the A tile splits into CLUSTER row blocks of 8-row groups");
+constexpr int CONSUMERS = 2;             // consumer warpgroups
+constexpr int TC_THREADS = (CONSUMERS + 1) * 128;
+constexpr int TILE_A = BM * BK;          // 16 KB
+constexpr int TILE_B = BN * BK;          // 16 KB
+constexpr uint32_t STAGE_TX = TILE_A + TILE_B;
+constexpr int TC_SMEM = STAGES * (TILE_A + TILE_B) + 2 * STAGES * 8 + 1024;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+// Spins until the phase of parity `parity` has completed. A pipeline fault
+// that would leave it waiting forever traps instead (a launch error the
+// wrapper's caller sees at the next synchronisation, not a hung card):
+// 2^28 polls are seconds, while every legitimate wait here is microseconds.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  uint32_t polls = 0;
+  do {
+    if (++polls == (1u << 28)) __trap();
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// Arrive on the barrier at the same offset in CTA `rank` of the cluster.
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar,
+                                                    uint32_t rank) {
+  asm volatile(
+      "{\n"
+      ".reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n"
+      "}\n" ::"r"(bar),
+      "r"(rank)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+
+// The same box into the same shared offset of every CTA in `mask`,
+// completing on each one's barrier at offset `bar`.
+__device__ __forceinline__ void tma_load_3d_multicast(
+    uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0, int c1,
+    int c2, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes.multicast::cluster [%0], [%1, {%3, %4, %5}], [%2], %6;" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "h"(mask)
+      : "memory");
+}
+
+// Shared-memory matrix descriptor: K-major, 128-byte swizzle, rows of 128
+// bytes in 8-row groups 1024 bytes apart (SBO); LBO unused for this layout.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) |
+         (static_cast<uint64_t>(1) << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving reads of the accumulator across a wait.
+__device__ __forceinline__ void fence_acc(int (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// D (+)= A . B^T on a 64x128 tile, k = 32 bytes; accumulate unless
+// scale_d == 0. Fragment: d[4j + 2h + b] is row 16*warp + lane/4 + 8h,
+// column 8j + 2*(lane%4) + b.
+__device__ __forceinline__ void wgmma_m64n128k32(int (&d)[64], uint64_t da,
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__global__ void __cluster_dims__(CLUSTER, 1, 1)
+    __launch_bounds__(TC_THREADS, 1)
+digit_matmul_wgmma(const __grid_constant__ CUtensorMap tma_a,
+                   const __grid_constant__ CUtensorMap tma_b,
+                   const double* __restrict__ rs,
+                   const double* __restrict__ cs, double* __restrict__ out,
+                   int P, int M, int N, int Kp, int bits) {
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  // the 128B swizzle wants 1024-byte aligned tiles
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sA = base;
+  const uint32_t sB = sA + STAGES * TILE_A;
+  const uint32_t full = sB + STAGES * TILE_B;
+  const uint32_t empty = full + STAGES * 8;
+
+  const int wg = threadIdx.x / 128;
+  const int tid = threadIdx.x % 128;
+  const int m0 = blockIdx.y * BM;
+  const int n0 = blockIdx.x * BN;
+  const int nkt = (Kp + BK - 1) / BK;
+
+  uint32_t rank;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(rank));
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < STAGES; ++i) {
+      mbar_init(full + 8 * i, 1);
+      // one thread of every consumer warpgroup of the cluster: each
+      // stage is written by every CTA's multicast
+      mbar_init(empty + 8 * i, CLUSTER * CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  // the peers' barriers exist before anything arrives on them
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;" ::: "memory");
+
+  if (wg == CONSUMERS) {
+    // ---- producer warpgroup: one thread keeps the ring full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
+    if (tid == 0) {
+      asm volatile("prefetch.tensormap [%0];" ::"l"(
+                       reinterpret_cast<uint64_t>(&tma_a))
+                   : "memory");
+      asm volatile("prefetch.tensormap [%0];" ::"l"(
+                       reinterpret_cast<uint64_t>(&tma_b))
+                   : "memory");
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int s = 0; s < P; ++s)
+        for (int p = 0; p <= s; ++p)
+          for (int kt = 0; kt < nkt; ++kt) {
+            mbar_wait(empty + 8 * stage, phase ^ 1u);
+            const uint32_t fb = full + 8 * stage;
+            mbar_expect_tx(fb, STAGE_TX);
+            // this CTA's share of the A tile goes to every CTA of the
+            // cluster (they share m0); the B tile is its own
+            tma_load_3d_multicast(
+                sA + stage * TILE_A + rank * (TILE_A / CLUSTER), &tma_a, fb,
+                kt * BK, m0 + rank * (BM / CLUSTER), p, (1u << CLUSTER) - 1);
+            tma_load_3d(sB + stage * TILE_B, &tma_b, fb, kt * BK, n0, s - p);
+            if (++stage == STAGES) {
+              stage = 0;
+              phase ^= 1u;
+            }
+          }
+      // the CTA stays until every consumer of the cluster has released
+      // every stage: no arrival may reach it after it exits
+      for (int i = 0; i < STAGES; ++i) {
+        mbar_wait(empty + 8 * stage, phase ^ 1u);
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1u;
+        }
+      }
+    }
+  } else {
+    // ---- consumer warpgroups: rows 64*wg .. 64*wg+63 of the tile
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+    int acc[64];
+    float hi[64], lo[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      acc[i] = 0;
+      hi[i] = 0.0f;
+      lo[i] = 0.0f;
+    }
+    const uint32_t a_rows = static_cast<uint32_t>(wg) * 64 * BK;
+    int stage = 0;
+    uint32_t phase = 0;
+    int held = -1;     // stage whose wgmma group may still read shared memory
+    for (int s = 0; s < P; ++s) {
+      int scale_d = 0;
+      for (int p = 0; p <= s; ++p)
+        for (int kt = 0; kt < nkt; ++kt) {
+          mbar_wait(full + 8 * stage, phase);
+          const uint32_t ta = sA + stage * TILE_A + a_rows;
+          const uint32_t tb = sB + stage * TILE_B;
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < BK / 32; ++kk) {
+            wgmma_m64n128k32(acc, sw128_desc(ta + 32 * kk),
+                             sw128_desc(tb + 32 * kk), scale_d);
+            scale_d = 1;
+          }
+          wgmma_commit();
+          // one group stays in flight; the one before it is done reading
+          wgmma_wait<1>();
+          if (held >= 0 && tid == 0)
+            for (uint32_t r = 0; r < CLUSTER; ++r)
+              mbar_arrive_cluster(empty + 8 * held, r);
+          held = stage;
+          if (++stage == STAGES) {
+            stage = 0;
+            phase ^= 1u;
+          }
+        }
+      wgmma_wait<0>();
+      fence_acc(acc);
+      if (tid == 0)
+        for (uint32_t r = 0; r < CLUSTER; ++r)
+          mbar_arrive_cluster(empty + 8 * held, r);
+      held = -1;
+      const float sc = ldexpf(1.0f, -bits * (s + 2));
+#pragma unroll
+      for (int i = 0; i < 64; ++i) combine(hi[i], lo[i], acc[i], sc);
+    }
+
+    const int r0 = m0 + wg * 64 + warp * 16 + lane / 4;
+    const int c0 = n0 + 2 * (lane % 4);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + 8 * h;
+      if (r >= M) continue;
+      const double rsc = rs[r];
+      double* orow = out + static_cast<long long>(r) * N;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int c = c0 + 8 * j;
+        const int i = 4 * j + 2 * h;
+        if (c + 1 < N && (N & 1) == 0) {
+          double2 v;
+          v.x = epilogue(hi[i], lo[i], rsc, cs[c]);
+          v.y = epilogue(hi[i + 1], lo[i + 1], rsc, cs[c + 1]);
+          *reinterpret_cast<double2*>(orow + c) = v;
+        } else {
+          if (c < N) orow[c] = epilogue(hi[i], lo[i], rsc, cs[c]);
+          if (c + 1 < N) orow[c + 1] = epilogue(hi[i + 1], lo[i + 1], rsc,
+                                                cs[c + 1]);
+        }
+      }
+    }
+  }
+}
+
+// ------------------------------------------------------------------------
+// __dp4a route: the pairwise schedule (pairwise == 1) only.
+
+constexpr int TM = 64;
+constexpr int TN = 64;
+constexpr int DK = 32;             // contraction bytes per shared-memory slab
+constexpr int KW = DK / 4;         // packed int8x4 words per slab row
+constexpr int LDS = KW + 1;        // padded shared row: spreads the banks
+constexpr int THREADS = 256;       // 16 x 16 threads, 4 x 4 outputs each
+
+// The 4 bytes at k = gk..gk+3 of a K-major row, those at k >= c1 zeroed.
+// gk is a multiple of 4 below c1 <= Kp, so the word lies inside the row.
+__device__ __forceinline__ int load_word(const int8_t* row, int gk, int c1) {
+  if (gk >= c1) return 0;
+  const int w = *reinterpret_cast<const int*>(row + gk);
+  const int nb = c1 - gk;
+  return nb >= 4 ? w : (w & ((1 << (8 * nb)) - 1));
 }
 
 __global__ void __launch_bounds__(THREADS)
-digit_matmul_kernel(const int8_t* __restrict__ ad,
-                    const int8_t* __restrict__ bd,
-                    const double* __restrict__ rs,
-                    const double* __restrict__ cs,
-                    double* __restrict__ out,
-                    int P, int M, int K, int N, int bits, int kchunk,
-                    int pairwise) {
+digit_matmul_dp4a(const int8_t* __restrict__ ad, const int8_t* __restrict__ bd,
+                  const double* __restrict__ rs,
+                  const double* __restrict__ cs, double* __restrict__ out,
+                  int P, int M, int N, int Kp, int K, int bits, int kchunk) {
   __shared__ int As[TM][LDS];      // As[row][k/4]: 4 k-values of one row
   __shared__ int Bs[TN][LDS];      // Bs[col][k/4]: 4 k-values of one column
 
@@ -85,8 +457,8 @@ digit_matmul_kernel(const int8_t* __restrict__ ad,
   const int ty = tid >> 4;
   const int row0 = blockIdx.y * TM;
   const int col0 = blockIdx.x * TN;
-  const long long mk = static_cast<long long>(M) * K;
-  const long long kn = static_cast<long long>(K) * N;
+  const long long mk = static_cast<long long>(M) * Kp;
+  const long long nk = static_cast<long long>(N) * Kp;
 
   float hi[4][4], lo[4][4];
   int acc[4][4];
@@ -103,38 +475,31 @@ digit_matmul_kernel(const int8_t* __restrict__ ad,
     const float sc = ldexpf(1.0f, -bits * (s + 2));
     for (int p = 0; p <= s; ++p) {
       const int8_t* A = ad + p * mk;
-      const int8_t* B = bd + (s - p) * kn;
-      for (int c0 = 0; c0 < K; c0 += kchunk) {
-        const int c1 = min(K, c0 + kchunk);
-        for (int k0 = c0; k0 < c1; k0 += BK) {
+      const int8_t* B = bd + (s - p) * nk;
+      for (int ch0 = 0; ch0 < K; ch0 += kchunk) {
+        const int ch1 = min(K, ch0 + kchunk);
+        for (int k0 = ch0 - ch0 % 4; k0 < ch1; k0 += DK) {
           for (int w = tid; w < TM * KW; w += THREADS) {
             const int r = w / KW;
-            const int kw = w % KW;
+            const int gk = k0 + 4 * (w % KW);
             const int gr = row0 + r;
-            const int gk = k0 + 4 * kw;
-            int packed = 0;
+            int v = 0;
             if (gr < M) {
-              const int8_t* src = A + static_cast<long long>(gr) * K;
-#pragma unroll
-              for (int b = 0; b < 4; ++b)
-                if (gk + b < c1) packed |= pack_byte(src[gk + b], b);
+              v = load_word(A + gr * static_cast<long long>(Kp), gk, ch1);
+              if (gk < ch0) v &= ~((1 << (8 * (ch0 - gk))) - 1);
             }
-            As[r][kw] = packed;
+            As[r][w % KW] = v;
           }
           for (int w = tid; w < TN * KW; w += THREADS) {
-            const int c = w % TN;
-            const int kw = w / TN;
+            const int c = w / KW;
+            const int gk = k0 + 4 * (w % KW);
             const int gc = col0 + c;
-            const int gk = k0 + 4 * kw;
-            int packed = 0;
+            int v = 0;
             if (gc < N) {
-#pragma unroll
-              for (int b = 0; b < 4; ++b)
-                if (gk + b < c1)
-                  packed |= pack_byte(
-                      B[static_cast<long long>(gk + b) * N + gc], b);
+              v = load_word(B + gc * static_cast<long long>(Kp), gk, ch1);
+              if (gk < ch0) v &= ~((1 << (8 * (ch0 - gk))) - 1);
             }
-            Bs[c][kw] = packed;
+            Bs[c][w % KW] = v;
           }
           __syncthreads();
 #pragma unroll
@@ -152,25 +517,14 @@ digit_matmul_kernel(const int8_t* __restrict__ ad,
           }
           __syncthreads();
         }
-        if (pairwise) {
 #pragma unroll
-          for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < 4; ++i)
 #pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              combine(hi[i][j], lo[i][j], acc[i][j], sc);
-              acc[i][j] = 0;
-            }
-        }
+          for (int j = 0; j < 4; ++j) {
+            combine(hi[i][j], lo[i][j], acc[i][j], sc);
+            acc[i][j] = 0;
+          }
       }
-    }
-    if (!pairwise) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          combine(hi[i][j], lo[i][j], acc[i][j], sc);
-          acc[i][j] = 0;
-        }
     }
   }
 
@@ -183,31 +537,98 @@ digit_matmul_kernel(const int8_t* __restrict__ ad,
     for (int j = 0; j < 4; ++j) {
       const int c = col0 + tx + 16 * j;
       if (c >= N) continue;
-      const double v = __dadd_rn(static_cast<double>(hi[i][j]),
-                                 static_cast<double>(lo[i][j]));
       out[static_cast<long long>(r) * N + c] =
-          __dmul_rn(__dmul_rn(v, rsc), cs[c]);
+          epilogue(hi[i][j], lo[i][j], rsc, cs[c]);
     }
   }
+}
+
+// ------------------------------------------------------------------------
+// Host side.
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                  void*, const cuuint64_t*, const cuuint64_t*,
+                                  const cuuint32_t*, const cuuint32_t*,
+                                  CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                         cudaEnableDefault,
+                                         &q) != cudaSuccess ||
+        q != cudaDriverEntryPointSuccess)
+      p = nullptr;
+    return reinterpret_cast<EncodeTiledFn>(p);
+  }();
+  return fn;
+}
+
+// TMA map of a K-major digit stack [P, rows, Kp]: boxes of box_rows rows x
+// 128 bytes of one digit, 128B swizzle, zero fill past every edge.
+CUresult stack_map(CUtensorMap* map, const void* ptr, int P, int rows,
+                   int Kp, int box_rows) {
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(Kp),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(P)};
+  const cuuint64_t strides[2] = {
+      static_cast<cuuint64_t>(Kp),
+      static_cast<cuuint64_t>(rows) * static_cast<cuuint64_t>(Kp)};
+  const cuuint32_t box[3] = {BK, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3,
+                        const_cast<void*>(ptr), dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
 }  // namespace
 
 // Launch on `stream` (a cudaStream_t passed as a pointer-sized integer).
-// Returns the cudaError_t of the launch (0 on success); never synchronises.
+// Returns 0 on success, a cudaError_t of the launch, or 1000 + the CUresult
+// of a failed tensor-map encoding; never synchronises.
 extern "C" int digit_matmul_launch(const void* ad, const void* bd,
                                    const void* rs, const void* cs, void* out,
-                                   int P, int M, int K, int N, int bits,
-                                   int kchunk, int pairwise, void* stream) {
+                                   int P, int M, int N, int Kp, int K,
+                                   int bits, int kchunk, int pairwise,
+                                   void* stream) {
   if (M <= 0 || N <= 0) return 0;
-  if (P < 1 || P > 7 || bits < 1 || bits > 7 || kchunk < 1)
+  if (P < 1 || P > 7 || bits < 1 || bits > 7 || kchunk < 1 || Kp < 16 ||
+      Kp % 16 != 0 || K < 0 || K > Kp)
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((N + TN - 1) / TN, (M + TM - 1) / TM);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* dr = static_cast<const double*>(rs);
+  const auto* dc = static_cast<const double*>(cs);
+  auto* o = static_cast<double*>(out);
+  if (pairwise) {
+    const dim3 grid((N + TN - 1) / TN, (M + TM - 1) / TM);
+    if (grid.y > 65535u) return static_cast<int>(cudaErrorInvalidConfiguration);
+    digit_matmul_dp4a<<<grid, THREADS, 0, st>>>(
+        static_cast<const int8_t*>(ad), static_cast<const int8_t*>(bd), dr, dc,
+        o, P, M, N, Kp, K, bits, kchunk);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (encode_tiled() == nullptr)
+    return static_cast<int>(cudaErrorSymbolNotFound);
+  CUtensorMap ma, mb;
+  CUresult cr = stack_map(&ma, ad, P, M, Kp, BM / CLUSTER);
+  if (cr == CUDA_SUCCESS) cr = stack_map(&mb, bd, P, N, Kp, BN);
+  if (cr != CUDA_SUCCESS) return 1000 + static_cast<int>(cr);
+  // whole clusters along N: a CTA past the last column loads zeros and
+  // stores nothing, but still sends its share of A to its peer
+  const int nct = (N + BN - 1) / BN;
+  const dim3 grid((nct + CLUSTER - 1) / CLUSTER * CLUSTER,
+                  (M + BM - 1) / BM);
   if (grid.y > 65535u) return static_cast<int>(cudaErrorInvalidConfiguration);
-  digit_matmul_kernel<<<grid, THREADS, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(ad), static_cast<const int8_t*>(bd),
-      static_cast<const double*>(rs), static_cast<const double*>(cs),
-      static_cast<double*>(out), P, M, K, N, bits, kchunk, pairwise);
+  cudaError_t e = cudaFuncSetAttribute(
+      digit_matmul_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize, TC_SMEM);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  digit_matmul_wgmma<<<grid, TC_THREADS, TC_SMEM, st>>>(ma, mb, dr, dc, o, P,
+                                                        M, N, Kp, bits);
   return static_cast<int>(cudaGetLastError());
 }

@@ -2,9 +2,12 @@
 interface, loaded through ctypes.
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into
-``kernels/_build/lib<name>-<hash>.so`` (gitignored); the hash of the source
-and flags names the file, so an edited source rebuilds and an unchanged one
-is reused. Builds happen at first use, never at import.
+``kernels/_build/lib<name>-<hash>.so`` (gitignored); the hash of the source,
+of every ``csrc/`` header it includes (``#include "..."``, followed
+recursively) and of the flags names the file, so an edited source or header
+rebuilds and an unchanged one is reused. Builds happen at first use, never
+at import. The sources need no link flag: the tensor-map encoder is taken
+from the driver at run time (``cudaGetDriverEntryPointByVersion``).
 """
 
 from __future__ import annotations
@@ -12,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -41,10 +45,32 @@ def nvcc_path() -> str:
     return path
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def sources(name: str) -> list:
+    """csrc/<name>.cu and every csrc/ file it includes with quotes,
+    followed recursively, in the order first reached."""
+    todo, seen = [os.path.join(CSRC, name + ".cu")], []
+    while todo:
+        path = os.path.normpath(todo.pop(0))
+        if path in seen:
+            continue
+        seen.append(path)
+        with open(path, "rb") as fh:
+            for inc in _INCLUDE.findall(fh.read()):
+                cand = os.path.join(os.path.dirname(path), inc.decode())
+                if os.path.exists(cand):
+                    todo.append(cand)
+    return seen
+
+
 def lib_path(name: str) -> str:
-    src = os.path.join(CSRC, name + ".cu")
-    with open(src, "rb") as fh:
-        h = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources(name):
+        with open(path, "rb") as fh:
+            h.update(os.path.relpath(path, CSRC).encode() + b"\0"
+                     + fh.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 

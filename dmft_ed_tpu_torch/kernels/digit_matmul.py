@@ -12,11 +12,16 @@ with (hi, lo) the TwoSum f32 pair of Σ_s 2^{-bits(s+2)} g_s over exact
 int32 digit products (see ``csrc/digit_matmul.cu`` for the schedule and
 epilogue, which both versions here follow step for step).
 
+Layout: both stacks K-major, ad [P, M, Kp] and bd [P, N, Kp], with the
+contraction axis zero-padded to Kp, a multiple of 16 (``ozaki.kpad``);
+``k`` is the true contraction length, on which the pairwise chunks fall.
+
 Bound on the card: operation-bound at the main path's shapes
-(2·P(P+1)/2·M·N·K int8 operations against the int8 peak; the bytes are the
-digit stacks read once and the f64 output written once). Design of the
-first kernel: 64x64 tiles, shared-memory K slabs, ``__dp4a`` on packed
-int8x4 words, the f32 pair in registers — see the source note.
+(2·P(P+1)/2·M·N·k int8 operations against the int8 peak; the bytes are the
+digit stacks read once and the f64 output written once). Design: TMA tiles
+into a ring of shared-memory stages and ``wgmma`` s8 on the tensor cores
+for the concatenated schedule; the pairwise schedule keeps a ``__dp4a``
+route — see the source note.
 
 The wrapper launches the kernel for a CUDA tensor (or raises) and takes the
 plain version only for a tensor that lies on the CPU. ``digit_matmul.launches``
@@ -32,13 +37,16 @@ import torch
 from . import _build
 
 _NAME = "digit_matmul"
+K_ALIGN = 16          # Kp must be a multiple of this (16-byte TMA strides)
+TILE_M = 128          # CTA tile rows of the tensor-core route (dp4a: 64)
+_GRID_Y_MAX = 65535
 
 
 def _lib():
     lib = _build.load(_NAME)
     fn = lib.digit_matmul_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 \
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
@@ -57,15 +65,18 @@ def _combine(hi, lo, g, sc):
 
 
 def digit_matmul_plain(ad, bd, rs, cs, bits: int, pairwise: bool = False,
-                       kchunk: int | None = None):
+                       kchunk: int | None = None, k: int | None = None):
     """Plain PyTorch version: the same schedule and epilogue, with the
     digit products as f64 matmuls (exact: every partial sum stays below
-    2^31, far inside f64's 2^53) cast back to int32."""
-    P, M, K = ad.shape
-    N = bd.shape[2]
+    2^31, far inside f64's 2^53) cast back to int32. ad [P, M, Kp],
+    bd [P, N, Kp]; only the first k (default Kp) columns enter, and the
+    pairwise chunks fall on k as in ``ozaki._pairwise``."""
+    P, M, _ = ad.shape
+    N = bd.shape[1]
+    K = ad.shape[2] if k is None else k
     kchunk = K if kchunk is None else kchunk
-    A = ad.to(torch.float64)
-    B = bd.to(torch.float64)
+    A = ad[:, :, :K].to(torch.float64)
+    B = bd[:, :, :K].to(torch.float64)
     hi = torch.zeros((M, N), dtype=torch.float32, device=ad.device)
     lo = torch.zeros_like(hi)
     for s in range(P):
@@ -75,7 +86,7 @@ def digit_matmul_plain(ad, bd, rs, cs, bits: int, pairwise: bool = False,
         for p in range(s + 1):
             for c0 in range(0, K, kchunk) if K else [0]:
                 c1 = min(K, c0 + kchunk)
-                prod = A[p][:, c0:c1] @ B[s - p][c0:c1, :]
+                prod = A[p][:, c0:c1] @ B[s - p][:, c0:c1].T
                 if pairwise:
                     hi, lo = _combine(hi, lo, prod.to(torch.int32), sc)
                 else:
@@ -86,20 +97,23 @@ def digit_matmul_plain(ad, bd, rs, cs, bits: int, pairwise: bool = False,
     return out * rs[:, None] * cs[None, :]
 
 
-def digit_matmul(ad, bd, rs, cs, bits: int, pairwise: bool = False,
-                 kchunk: int | None = None):
-    """ad [P, M, K] int8, bd [P, K, N] int8 (digit 0 first), rs [M] and
-    cs [N] float64 -> out [M, N] float64. pairwise/kchunk select the
-    schedule (ozaki._schedule decides it from the exactness bound)."""
-    if ad.device.type == "cpu":
-        return digit_matmul_plain(ad, bd, rs, cs, bits, pairwise, kchunk)
-    if ad.device.type != "cuda":
-        raise ValueError(f"digit_matmul: unsupported device {ad.device}")
-    P, M, K = ad.shape
-    if bd.dim() != 3 or bd.shape[0] != P or bd.shape[1] != K:
+def _check(ad, bd, rs, cs, bits, k, kchunk):
+    """The layout and arguments the kernel takes, on any device: returns
+    (P, M, N, Kp, K, kchunk); raises ValueError on anything else."""
+    if ad.dim() != 3 or bd.dim() != 3:
+        raise ValueError("digit_matmul: digit stacks must be [P, rows, Kp]")
+    P, M, Kp = ad.shape
+    if bd.shape[0] != P or bd.shape[2] != Kp:
         raise ValueError(f"digit_matmul: digit stacks {tuple(ad.shape)} and "
-                         f"{tuple(bd.shape)} do not contract")
-    N = bd.shape[2]
+                         f"{tuple(bd.shape)} do not contract (both must be "
+                         "K-major [P, rows, Kp])")
+    N = bd.shape[1]
+    K = Kp if k is None else int(k)
+    if Kp % K_ALIGN or Kp == 0:
+        raise ValueError(f"digit_matmul: Kp={Kp} is not a positive multiple "
+                         f"of {K_ALIGN} (pad with ozaki.kpad)")
+    if not 0 <= K <= Kp:
+        raise ValueError(f"digit_matmul: k={K} outside 0..Kp={Kp}")
     for t, dt, shape, nm in ((ad, torch.int8, None, "ad"),
                              (bd, torch.int8, None, "bd"),
                              (rs, torch.float64, (M,), "rs"),
@@ -111,10 +125,29 @@ def digit_matmul(ad, bd, rs, cs, bits: int, pairwise: bool = False,
                              + (f" of shape {shape}" if shape else ""))
     if not 1 <= P <= 7 or not 1 <= bits <= 7:
         raise ValueError(f"digit_matmul: P={P}, bits={bits} outside 1..7")
-    kchunk = K if kchunk is None else int(kchunk)
+    kchunk = max(K, 1) if kchunk is None else int(kchunk)
     if kchunk < 1:
         raise ValueError("digit_matmul: kchunk must be >= 1")
-    if -(-M // 64) > 65535:
+    return P, M, N, Kp, K, kchunk
+
+
+def digit_matmul(ad, bd, rs, cs, bits: int, pairwise: bool = False,
+                 kchunk: int | None = None, k: int | None = None):
+    """ad [P, M, Kp] int8 and bd [P, N, Kp] int8, both K-major (digit 0
+    first, zero past the true contraction length k <= Kp, Kp a multiple
+    of 16), rs [M] and cs [N] float64 -> out [M, N] float64.
+    pairwise/kchunk select the schedule (ozaki._schedule decides it from
+    the exactness bound)."""
+    P, M, N, Kp, K, kchunk = _check(ad, bd, rs, cs, bits, k, kchunk)
+    if ad.device.type == "cpu":
+        return digit_matmul_plain(ad, bd, rs, cs, bits, pairwise, kchunk, K)
+    if ad.device.type != "cuda":
+        raise ValueError(f"digit_matmul: unsupported device {ad.device}")
+    for t, nm in ((ad, "ad"), (bd, "bd")):
+        if t.data_ptr() % 16:
+            raise ValueError(f"digit_matmul: {nm} is not 16-byte aligned "
+                             "(TMA reads it)")
+    if -(-M // (64 if pairwise else TILE_M)) > _GRID_Y_MAX:
         raise ValueError(f"digit_matmul: M={M} exceeds the launch grid")
     out = torch.empty((M, N), dtype=torch.float64, device=ad.device)
     if M == 0 or N == 0:
@@ -123,11 +156,12 @@ def digit_matmul(ad, bd, rs, cs, bits: int, pairwise: bool = False,
     with torch.cuda.device(ad.device):
         stream = torch.cuda.current_stream(ad.device).cuda_stream
         err = fn(ad.data_ptr(), bd.data_ptr(), rs.data_ptr(), cs.data_ptr(),
-                 out.data_ptr(), P, M, K, N, int(bits), kchunk,
+                 out.data_ptr(), P, M, N, Kp, K, int(bits), kchunk,
                  int(bool(pairwise)), stream)
     if err != 0:
-        raise RuntimeError(f"digit_matmul kernel launch failed: cudaError "
-                           f"{err}")
+        raise RuntimeError(f"digit_matmul kernel launch failed: error {err} "
+                           "(below 1000 a cudaError_t, else 1000 + the "
+                           "CUresult of cuTensorMapEncodeTiled)")
     digit_matmul.launches += 1
     return out
 

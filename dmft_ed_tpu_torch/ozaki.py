@@ -19,8 +19,16 @@ arithmetic, exact casts, IEEE exponent fields, round-half-to-even.
 Schedules (``_schedule``): the concatenated one sums each group
 Σ_{p+q=s} A_p·B_q in int32 while P·k·D² < 2^31 (``_cat_safe``); past that
 each (p, q) product — chunked along k at 2^31/D² — enters the pair alone.
-The digit stacks here are [P, m, k] (left) and [P, k, n] (right), digit 0
-first; the reference concatenates the same digits along k.
+
+Layout. The kernel feeds both stacks to the int8 tensor cores, which take
+8-bit operands only K-major, through TMA, which needs 16-byte row strides.
+So both stacks here are K-major with the contraction axis zero-padded to
+Kp = ``kpad(k)``, a multiple of 16: [P, m, Kp] (left) and [P, n, Kp]
+(right, the transpose of the reference's [P, k, n]), digit 0 first. The
+zero columns add exact zeros to every product. The right stack is written
+transposed straight into its buffer, digit by digit (one int8 pass per
+digit, no extra pass over the f64 operand). ``slice_digits`` keeps the
+reference's layout.
 """
 
 from __future__ import annotations
@@ -28,9 +36,16 @@ from __future__ import annotations
 import torch
 
 from .kernels import digit_matmul
+from .kernels.digit_matmul import K_ALIGN
 
 _BITS = 6              # default digit width ("ozakiN" == N slices of 6 bits)
 _INT32_LIM = 2.0 ** 31
+
+
+def kpad(k: int) -> int:
+    """Contraction length of the K-major digit stacks: k rounded up to a
+    multiple of K_ALIGN, at least K_ALIGN."""
+    return -(-max(k, 1) // K_ALIGN) * K_ALIGN
 
 
 def parse_precision(s: str):
@@ -71,10 +86,12 @@ def _two_sum_f32(a, b):
     return s, err
 
 
-def _digits_list(A, nslices: int, scale_axis, bits: int = _BITS):
+def _digits_list(A, nslices: int, scale_axis, bits: int = _BITS, out=None):
     """Digit slices of A (list of int8 tensors in A's layout) and the f64
     power-of-two scales, constant along `scale_axis` (0: per-column
-    scales, 1: per-row scales, None: one scale)."""
+    scales, 1: per-row scales, None: one scale). With `out` (an int8
+    [nslices, ...] view in A's layout) digit p is written into out[p]
+    instead, and the list is empty."""
     a32 = A.to(torch.float32)
     if scale_axis is None:
         m = a32.abs().amax().reshape((1,) * A.dim())
@@ -88,14 +105,18 @@ def _digits_list(A, nslices: int, scale_axis, bits: int = _BITS):
     stepB = torch.tensor(2.0 ** bits, dtype=torch.float32, device=A.device)
     t, c = u1, u2
     digits = []
-    for _ in range(nslices):
+    for p in range(nslices):
         y = t * stepB
         cB = c * stepB
         s, e2 = _two_sum_f32(y, cB)
         q = torch.round(s)
         d = s - q
         t, c = _two_sum_f32(d, e2)
-        digits.append(torch.clamp(q, -127.0, 127.0).to(torch.int8))
+        q = torch.clamp(q, -127.0, 127.0)
+        if out is None:
+            digits.append(q.to(torch.int8))
+        else:
+            out[p].copy_(q)          # exact: q is an integer in [-127, 127]
     return digits, S64
 
 
@@ -125,33 +146,52 @@ def _schedule(k: int, nslices: int, bits: int):
     return True, min(max(k, 1), kmax)
 
 
+def _kmajor_buffer(nslices: int, rows: int, k: int, device):
+    """[P, rows, kpad(k)] int8 with the pad columns zeroed."""
+    buf = torch.empty((nslices, rows, kpad(k)), dtype=torch.int8,
+                      device=device)
+    if buf.shape[2] > k:
+        buf[:, :, k:].zero_()
+    return buf
+
+
 def _right_digits(B, nslices: int, bits: int):
-    """Right operand B [k, n]: (digits [P, k, n], column scales [1, n])."""
-    digits, sb = _digits_list(B, nslices, scale_axis=0, bits=bits)
-    return torch.stack(digits), sb
+    """Right operand B [k, n]: (digits [P, n, Kp] K-major, zero past k;
+    column scales [1, n]). Digit p of B is written transposed into
+    buf[p, :, :k]."""
+    k, n = B.shape
+    buf = _kmajor_buffer(nslices, n, k, B.device)
+    _, sb = _digits_list(B, nslices, scale_axis=0, bits=bits,
+                         out=buf[:, :, :k].transpose(1, 2))
+    return buf, sb
 
 
 def _left_digits(A, nslices: int, bits: int):
-    """Left operand A [m, k]: (digits [P, m, k], row scales [m, 1])."""
-    digits, sa = _digits_list(A, nslices, scale_axis=1, bits=bits)
-    return torch.stack(digits), sa
+    """Left operand A [m, k]: (digits [P, m, Kp] K-major, zero past k;
+    row scales [m, 1])."""
+    m, k = A.shape
+    buf = _kmajor_buffer(nslices, m, k, A.device)
+    _, sa = _digits_list(A, nslices, scale_axis=1, bits=bits,
+                         out=buf[:, :, :k])
+    return buf, sa
 
 
 def matmul(A, B, nslices: int = 6, bits: int = _BITS):
     """A @ B in near-f64 precision via int8 digit products (A [m, k] f64,
     B [k, n] f64)."""
+    k = A.shape[1]
     ad, sa = _left_digits(A, nslices, bits)
     bd, sb = _right_digits(B, nslices, bits)
-    pairwise, kchunk = _schedule(A.shape[1], nslices, bits)
+    pairwise, kchunk = _schedule(k, nslices, bits)
     return digit_matmul(ad, bd, sa.reshape(-1), sb.reshape(-1), bits,
-                        pairwise, kchunk)
+                        pairwise, kchunk, k=k)
 
 
 class SlicedMatrix:
     """A pre-sliced constant LEFT operand A of A @ B (the per-spin
     Hamiltonian blocks, reused across hundreds of Lanczos iterations).
 
-    digits: [P, m, k] int8, digit 0 first; scales: [m, 1]."""
+    digits: [P, m, Kp] int8 K-major, digit 0 first; scales: [m, 1]."""
 
     def __init__(self, A, nslices: int = 6, bits: int = _BITS):
         self.nslices = nslices
@@ -165,17 +205,20 @@ class SlicedMatrix:
 
 
 def sliced_matmul(Ad, sa, B, nslices: int, bits: int = _BITS):
-    """(pre-sliced A) @ B: Ad [P, m, k] digits, sa [m, 1] row scales."""
+    """(pre-sliced A) @ B: Ad [P, m, Kp] digits, sa [m, 1] row scales;
+    B [k, n] is sliced per column on the fly."""
+    k = B.shape[0]
     bd, sb = _right_digits(B, nslices, bits)
-    pairwise, kchunk = _schedule(Ad.shape[2], nslices, bits)
+    pairwise, kchunk = _schedule(k, nslices, bits)
     return digit_matmul(Ad, bd, sa.reshape(-1), sb.reshape(-1), bits,
-                        pairwise, kchunk)
+                        pairwise, kchunk, k=k)
 
 
 class SlicedRightOperand:
-    """Pre-sliced constant RIGHT operand A of B @ A, scaled per column.
+    """Pre-sliced constant RIGHT operand A [k, n] of B @ A, scaled per
+    column.
 
-    digits: [P, k, n] int8, digit 0 first; scales: [1, n]."""
+    digits: [P, n, Kp] int8 K-major, digit 0 first; scales: [1, n]."""
 
     def __init__(self, A, nslices: int = 6, bits: int = _BITS):
         self.nslices = nslices
@@ -189,10 +232,11 @@ class SlicedRightOperand:
 
 
 def right_sliced_matmul(B, Ad, sa, nslices: int, bits: int = _BITS):
-    """B @ (pre-sliced A): Ad [P, k, n] digits, sa [1, n] column scales;
+    """B @ (pre-sliced A): Ad [P, n, Kp] digits, sa [1, n] column scales;
     B [m, k] is sliced per row on the fly. Scaled row first, then column,
     as the reference multiplies (· sb · sa)."""
+    k = B.shape[1]
     bdig, sb = _left_digits(B, nslices, bits)
-    pairwise, kchunk = _schedule(Ad.shape[1], nslices, bits)
+    pairwise, kchunk = _schedule(k, nslices, bits)
     return digit_matmul(bdig, Ad, sb.reshape(-1), sa.reshape(-1), bits,
-                        pairwise, kchunk)
+                        pairwise, kchunk, k=k)

@@ -9,7 +9,12 @@ bath) and times ``sweep_plain.sweep_tridiag`` steps:
 * device time per kernel name from ``torch.profiler`` over as many steps
   again, their sum, and the share of the unprofiled wall time the card
   was busy;
-* the digit-matmul kernel's launches per step.
+* the digit-matmul kernel's launches per step;
+* the digit extraction of one 924-class dw right operand (C [924, 4096]):
+  ``ozaki._right_digits``, which writes each digit transposed into the
+  K-major stack, against the same extraction of the pre-transposed
+  operand written straight (``_left_digits`` of C^T), so that the
+  difference is the cost of the transposed writes.
 
 Run on a machine with one CUDA card: ``python3 profile_port.py [--steps N]
 [--precision ozaki5x7|native]``. Prints one JSON object as its last line.
@@ -100,6 +105,17 @@ def main() -> int:
     for ms, cnt, key in rows[:12]:
         print(f"  {ms:9.3f} ms/step  {cnt:8.1f} calls/step  {key[:90]}")
     kern = sum(r[0] for r in rows if "digit_matmul" in r[2])
+
+    from chip_smoke import time_ms
+    from dmft_ed_tpu_torch import ozaki
+    nsl, bits = ozaki.parse_precision("ozaki5x7")
+    C = torch.randn(924, 4096, dtype=torch.float64, device=dev)
+    Ct = C.T.contiguous()
+    t_right = time_ms(lambda: ozaki._right_digits(C, nsl, bits), 20)
+    t_left = time_ms(lambda: ozaki._left_digits(Ct, nsl, bits), 20)
+    print(f"digit extraction of a 924x4096 right operand: {t_right:.4f} ms "
+          f"written transposed, {t_left:.4f} ms written straight from its "
+          "transpose")
     print(json.dumps({
         "card": card, "precision": args.precision, "steps": args.steps,
         "sectors": len(secs), "wall_ms_per_step": 1e3 * wall,
@@ -110,6 +126,8 @@ def main() -> int:
         "device_busy_share": busy / (1e3 * wall),
         "digit_matmul_ms_per_step": kern,
         "digit_matmul_launches_per_step": launches,
+        "right_digits_transposed_ms": t_right,
+        "left_digits_straight_ms": t_left,
         "top": [{"ms_per_step": r[0], "calls_per_step": r[1],
                  "name": r[2][:120]} for r in rows[:12]]}))
     return 0

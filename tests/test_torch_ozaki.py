@@ -163,13 +163,22 @@ def test_wrapper_checks_and_counts():
                      sb.reshape(-1), 7)
 
 
+# the per-spin dimensions C(12, n) of the Nbath=11 main path, as the dw
+# (K x K times K x n) and the up (m x K times K x K) product families
+K_CLASSES = (1, 12, 66, 220, 495, 792)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape,forced", [((924, 924, 600), False),
                                           ((300, 129, 501), False),
-                                          ((300, 129, 501), True)])
+                                          ((300, 129, 501), True)]
+                         + [((k, k, 1000), False) for k in K_CLASSES]
+                         + [((1000, k, k), False) for k in K_CLASSES])
 def test_kernel_vs_plain_on_card(shape, forced, monkeypatch):
-    """The CUDA kernel against its plain version on the card (run there
-    with ``python -m pytest -m gpu tests/test_torch_ozaki.py``)."""
+    """The CUDA kernel against its plain version on the card, bitwise
+    (run there with ``python -m pytest -m gpu tests/test_torch_ozaki.py``):
+    the tensor-core route at every K class of the main path and a ragged
+    shape, the dp4a route on the forced pairwise schedule."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     A, B = _operands(4, *shape)
@@ -182,9 +191,9 @@ def test_kernel_vs_plain_on_card(shape, forced, monkeypatch):
     assert pairwise == forced
     n0 = digit_matmul.launches
     got = digit_matmul(ad, bd, sa.reshape(-1), sb.reshape(-1), 7, pairwise,
-                       kchunk)
+                       kchunk, k=shape[1])
     ref = digit_matmul_plain(ad, bd, sa.reshape(-1), sb.reshape(-1), 7,
-                             pairwise, kchunk)
+                             pairwise, kchunk, k=shape[1])
     torch.cuda.synchronize()
     assert digit_matmul.launches == n0 + 1
     assert torch.equal(got, ref)
