@@ -12,10 +12,11 @@ when any is missing or any phase fails. Phases:
 2. each kernel against its plain PyTorch version on the card, at every
    shape class the main path gives it (the seven per-spin dimensions
    C(12, n) x the dw and up families at 5x7, the 924 class at 6x6), plus a
-   ragged shape and the pairwise schedule forced with chunks of 8 and 39:
+   ragged shape (once more with nonzero pad columns, which must not
+   enter) and the pairwise schedule forced with chunks of 8 and 39:
    bitwise against the plain version, 1e-9 against the f64 product; times
-   of the kernel, the plain version and the library call, achieved TOPS
-   and the share of the bound;
+   of the kernel, the plain version and the library call, the host's
+   cost of one wrapper call, achieved TOPS and the share of the bound;
 3. the main path: the Nbath=11 Bethe DMFT loop (``models.hm_bethe.run``)
    with ``matmul_precision="ozaki5x7"``, two iterations, launch counts
    reset just before and read just after;
@@ -117,6 +118,22 @@ def time_ms(fn, reps: int) -> float:
     return e0.elapsed_time(e1) / reps
 
 
+def host_us(fn, reps: int) -> float:
+    """Mean host microseconds per call over `reps` calls, with the card
+    synchronised before them and not between them: what one call costs
+    the host until it returns (its launch cost, while the card keeps up
+    or the launch queue has room)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * t / reps
+
+
 def digit_matmul_ops(P, M, K, N):
     """int8 operations of the P(P+1)/2 digit-pair products (true K)."""
     return 2.0 * (P * (P + 1) // 2) * M * N * K
@@ -135,18 +152,24 @@ def digit_matmul_bound_ms(P, M, K, N):
 
 def digit_matmul_cases(device, cases, reps: int = 10, timed: bool = True):
     """Kernel vs plain version (and vs the f64 product) for each
-    (label, A, B, P, bits, kchunk) case, kchunk None for the schedule that
-    ozaki._schedule picks (the concatenated one at these K) or a forced
-    pairwise chunk length. Returns one record per case; raises, after
-    every case has run, if any disagreed."""
+    (label, A, B, P, bits, kchunk, pad) case, kchunk None for the schedule
+    that ozaki._schedule picks (the concatenated one at these K) or a
+    forced pairwise chunk length, pad None or a nonzero digit written into
+    both stacks' pad columns (which must not change the result). Returns
+    one record per case; raises, after every case has run, if any
+    disagreed."""
     import torch
     from dmft_ed_tpu_torch import ozaki
     from dmft_ed_tpu_torch.kernels import digit_matmul, digit_matmul_plain
     out, bad = [], []
-    for label, A, Bm, P, B, forced in cases:
+    for label, A, Bm, P, B, forced, pad in cases:
         (M, K), N = A.shape, Bm.shape[1]
         ad, sa = ozaki._left_digits(A, P, B)
         bd, sb = ozaki._right_digits(Bm, P, B)
+        if pad is not None:
+            assert ad.shape[2] > K, (label, K)
+            ad[:, :, K:] = pad
+            bd[:, :, K:] = -pad
         rs, cs = sa.reshape(-1), sb.reshape(-1)
         pairwise, kchunk = ozaki._schedule(K, P, B)
         assert not pairwise, (label, K)
@@ -176,6 +199,7 @@ def digit_matmul_cases(device, cases, reps: int = 10, timed: bool = True):
         rec["bound_ms"], rec["bound_by"] = digit_matmul_bound_ms(P, M, K, N)
         if timed:
             rec["ms"] = time_ms(kern, reps)
+            rec["host_us"] = host_us(kern, 5 * reps)
             rec["plain_ms"] = time_ms(plain, max(2, reps // 4))
             rec["library_ms"] = time_ms(lambda: A @ Bm, reps)
             rec["tops"] = digit_matmul_ops(P, M, K, N) / rec["ms"] / 1e9
@@ -219,7 +243,8 @@ def kernel_cases(device, cfg_kwargs):
     sector sharing n_dw, and [V; ...] @ H_up(n)^T over their rows -- with
     the main path's own per-spin operators on the initial bath; the 924
     class at 6x6; a ragged shape; and the pairwise schedule forced with
-    chunks of 8 and 39. Krylov-like V from a seed. The n = 0 operators are
+    chunks of 8 and 39; the ragged shape again with nonzero pad columns.
+    Krylov-like V from a seed. The n = 0 operators are
     the 1x1 zero matrix, so that class takes a random 1x1 operator."""
     import numpy as np
     import torch
@@ -248,16 +273,18 @@ def kernel_cases(device, cfg_kwargs):
         if n == 0:
             H_dw, H_up = randn(1, 1), randn(1, 1)
         K = H_dw.shape[0]
-        dw = (f"dw K={K}", H_dw, randn(K, dw_cols[n]), 5, 7, None)
-        up = (f"up K={K}", randn(up_rows[n], K), H_up.T, 5, 7, None)
+        dw = (f"dw K={K}", H_dw, randn(K, dw_cols[n]), 5, 7, None, None)
+        up = (f"up K={K}", randn(up_rows[n], K), H_up.T, 5, 7, None, None)
         out += [dw, up]
         if n == cfg.ns // 2:
-            out += [(c[0] + " 6x6",) + c[1:3] + (6, 6, None)
+            out += [(c[0] + " 6x6",) + c[1:3] + (6, 6, None, None)
                     for c in (dw, up)]
     Ar, Br = randn(300, 129), randn(129, 501)
-    out += [("ragged 300x129x501", Ar, Br, 5, 7, None),
-            ("pairwise kchunk=8", Ar, Br, 5, 7, 8),
-            ("pairwise kchunk=39", Ar, Br, 5, 7, 39)]
+    out += [("ragged 300x129x501", Ar, Br, 5, 7, None, None),
+            ("ragged, nonzero pad", Ar, Br, 5, 7, None, 37),
+            ("pairwise kchunk=8", Ar, Br, 5, 7, 8, None),
+            ("pairwise kchunk=39", Ar, Br, 5, 7, 39, None),
+            ("pairwise kchunk=39, nonzero pad", Ar, Br, 5, 7, 39, 37)]
     return out
 
 

@@ -43,43 +43,60 @@
 //   * tensor cores: wgmma.mma_async m64n128k32 .s32.s8.s8 (never
 //     .satfinite: the schedule keeps the sums exact, saturation would hide
 //     a wrap), both operands from shared memory, 128B swizzle, K-major;
-//   * operand feed: one producer thread per CTA issues TMA loads of
-//     128-byte-deep A and B tiles into a ring of STAGES = 4 shared-memory
-//     stages, completed on mbarriers (full: bytes arrived; empty: every
-//     consumer warpgroup of the cluster done reading). Ragged M and N
-//     edges come from TMA's out-of-bounds zero fill; the padded Kp
-//     handles the contraction tail;
+//   * operand feed: one producer warpgroup per CTA (one thread of it
+//     issues) makes TMA loads of 128-byte-deep A and B tiles into a ring
+//     of STAGES = 4 shared-memory stages, completed on mbarriers (full:
+//     bytes arrived; empty: every consumer warpgroup of the cluster done
+//     reading). Ragged M and N edges come from TMA's out-of-bounds zero
+//     fill. The maps' contraction extent is the true K (row stride Kp),
+//     so the same zero fill covers the k-tail: columns K..Kp-1 never
+//     enter, whatever they hold, exactly as in the plain version;
 //   * L2 feed: a 128x128 tile streams 15 x 8 k-tiles of 32 KB at the 924
 //     class, ~1 GB per call from L2. Two CTAs along N form a cluster and
-//     share the A tile: each loads half of it and multicasts it to both,
-//     so a CTA reads 24 KB per k-tile instead of 32;
+//     share the A tile: each loads its 64 rows and multicasts them to
+//     both, so a CTA reads 24 KB per k-tile instead of 32;
 //   * schedule: the producer streams k-tiles in the order (s, p, ktile),
-//     A_p against B_{s-p}. Per group s the first wgmma runs with scale-d
-//     = 0; after the last the consumer waits (wgmma.wait_group 0) and
-//     combines its int32 fragment into (hi, lo) in registers. P=5 at
-//     K=924 is 15 * 8 = 120 k-tiles per output tile, so the ring stays
-//     full across group boundaries;
-//   * registers: accumulator + hi + lo is 3 registers per output, 192 per
-//     thread for a 64x128 warpgroup tile. Two consumer warpgroups make a
-//     128x128 CTA tile (8 x 32 = 256 tiles at 924x4096 on 132 SMs);
-//     setmaxnreg gives the producer warpgroup 40 registers and each
-//     consumer 232;
+//     A_p against B_{s-p}. Each group s starts with a wgmma at scale-d = 0
+//     whose accumulator is output only; after its last the consumer waits
+//     (wgmma.wait_group 0) and combines its int32 fragment into (hi, lo).
+//     P=5 at K=924 is 15 * 8 = 120 k-tiles per output tile, so the ring
+//     stays full across group boundaries;
+//   * registers: the sum, hi and lo are 3 words per output, 192 per thread
+//     of a 64x128 warpgroup tile. Two consumer warpgroups make a 128x128
+//     CTA tile (8 x 32 = 256 tiles at 924x4096 on 132 SMs). With the
+//     producer that is 3 warps per SM sub-partition, which caps every
+//     thread at 168 registers (16,384 / 3 / 32, in steps of 8), and ptxas
+//     keeps the consumers near that cap even after setmaxnreg gives them
+//     232 (the producer 40). So lo lives in shared memory (64 KB, word
+//     256 i + thread: no bank conflict); the sum and hi stay in registers.
+//     As the sum is output only at each group's start, its registers are
+//     free from the combine onwards. No wait of the consumers counts its
+//     polls. ptxas reports no spill (PERF.md). Holding the pair in
+//     registers spilled it around each combine, and a CTA of the two
+//     warpgroups alone (255 registers, thread 0 the producer) was slower:
+//     a producer that waits for the releases stalls its warpgroup;
 //   * epilogue: f64 ((hi + lo) * rs) * cs with __dadd_rn / __dmul_rn,
 //     straight from the fragment, masked at the ragged edges; each output
 //     written once, 16 bytes per thread per column pair, full 32-byte
 //     sectors per warp.
-// Measured on an H100 (PERF.md, bench_digit_matmul.py): 4 stages beat 3,
-// 5 and 6, and the 2-CTA cluster beats one CTA. Arriving once per
-// warpgroup with the default (CTA-scope) semantics, and not per warp
-// with .release.cluster, is what makes the cluster pay at all. A 2x2
-// cluster that shares B too, skipping the zero-fill k32 steps past Kp,
-// and 256-byte-deep stages were all slower.
+// Measured on an H100 (PERF.md): 4 stages beat 3, 5 and 6, and the 2-CTA
+// cluster beats one CTA. Arriving once per warpgroup with the default
+// (CTA-scope) semantics, and not per warp with .release.cluster, is what
+// makes the cluster pay at all. A 2x2 cluster that shares B too, skipping
+// the zero-fill k32 steps past Kp, and 256-byte-deep stages were all
+// slower.
 // Pairwise schedule: its chunk boundaries (kchunk, any length) do not fall
 // on the 32-byte MMA depth, so it keeps the first kernel's __dp4a route on
 // the same K-major layout, for pairwise == 1 only. The main path never
 // takes it: it needs P*K*D^2 >= 2^31, K > 101,650 at 5x7.
 
+#include <atomic>
 #include <cstdint>
+#include <functional>
+#include <mutex>
+#include <type_traits>
+#include <unordered_map>
+
 #include <cuda.h>
 #include <cuda_runtime.h>
 
@@ -110,24 +127,16 @@ __device__ __forceinline__ double epilogue(float hi, float lo, double rsc,
 constexpr int BM = 128;                  // CTA tile rows: 2 x 64
 constexpr int BN = 128;                  // CTA tile columns: one n128 wgmma
 constexpr int BK = 128;                  // k bytes per stage = swizzle span
-// Ring depth and cluster size; the defaults are the measured best, and
-// bench_digit_matmul.py rebuilds the kernel with others to time them.
-#ifndef DIGIT_MATMUL_STAGES
-#define DIGIT_MATMUL_STAGES 4
-#endif
-#ifndef DIGIT_MATMUL_CLUSTER
-#define DIGIT_MATMUL_CLUSTER 2
-#endif
-constexpr int STAGES = DIGIT_MATMUL_STAGES;
-constexpr int CLUSTER = DIGIT_MATMUL_CLUSTER;  // CTAs along N sharing A
-static_assert(CLUSTER == 1 || CLUSTER == 2 || CLUSTER == 4,
-              "the A tile splits into CLUSTER row blocks of 8-row groups");
+constexpr int STAGES = 4;                // ring depth
+constexpr int CLUSTER = 2;               // CTAs along N sharing the A tile
 constexpr int CONSUMERS = 2;             // consumer warpgroups
-constexpr int TC_THREADS = (CONSUMERS + 1) * 128;
+constexpr int TC_THREADS = (CONSUMERS + 1) * 128;  // + producer
 constexpr int TILE_A = BM * BK;          // 16 KB
 constexpr int TILE_B = BN * BK;          // 16 KB
 constexpr uint32_t STAGE_TX = TILE_A + TILE_B;
-constexpr int TC_SMEM = STAGES * (TILE_A + TILE_B) + 2 * STAGES * 8 + 1024;
+constexpr int TILE_LO = CONSUMERS * 128 * 64 * 4;   // the pairs' lo, 64 KB
+constexpr int TC_SMEM =
+    STAGES * (TILE_A + TILE_B) + TILE_LO + 2 * STAGES * 8 + 1024;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -139,25 +148,36 @@ __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
                : "memory");
 }
 
-// Spins until the phase of parity `parity` has completed. A pipeline fault
-// that would leave it waiting forever traps instead (a launch error the
-// wrapper's caller sees at the next synchronisation, not a hung card):
-// 2^28 polls are seconds, while every legitimate wait here is microseconds.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+// Whether the phase of parity `parity` has completed (try_wait: the
+// thread may sleep a while before it answers no).
+__device__ __forceinline__ bool mbar_done(uint32_t bar, uint32_t parity) {
   uint32_t done;
-  uint32_t polls = 0;
-  do {
-    if (++polls == (1u << 28)) __trap();
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n"
+      "}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done;
+}
+// Spins until that phase has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  while (!mbar_done(bar, parity)) {
+  }
+}
+// The same for the producer, which traps after 2^28 polls: every
+// legitimate wait here is microseconds, 2^28 polls are seconds. The
+// producer's last waits are for the consumers' last releases, so a
+// pipeline fault anywhere ends in a launch error the wrapper's caller sees
+// at the next synchronisation, not in a hung card. (The consumers' waits
+// keep no counter: its register would spill.)
+__device__ __forceinline__ void mbar_wait_or_trap(uint32_t bar,
+                                                  uint32_t parity) {
+  for (uint32_t polls = 1; !mbar_done(bar, parity); ++polls)
+    if (polls == (1u << 28)) __trap();
 }
 
 // Arrive on the barrier at the same offset in CTA `rank` of the cluster.
@@ -230,11 +250,10 @@ __device__ __forceinline__ void fence_acc(int (&d)[64]) {
   for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
-// D (+)= A . B^T on a 64x128 tile, k = 32 bytes; accumulate unless
-// scale_d == 0. Fragment: d[4j + 2h + b] is row 16*warp + lane/4 + 8h,
-// column 8j + 2*(lane%4) + b.
+// D += A . B^T on a 64x128 tile, k = 32 bytes. Fragment: d[4j + 2h + b]
+// is row 16*warp + lane/4 + 8h, column 8j + 2*(lane%4) + b.
 __device__ __forceinline__ void wgmma_m64n128k32(int (&d)[64], uint64_t da,
-                                                 uint64_t db, int scale_d) {
+                                                 uint64_t db) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -266,7 +285,46 @@ __device__ __forceinline__ void wgmma_m64n128k32(int (&d)[64], uint64_t da,
         "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
         "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
         "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// D = A . B^T on a 64x128 tile, k = 32 bytes, starting a new sum: D is
+// output only, so its registers are free from the last combine to here.
+__device__ __forceinline__ void wgmma_m64n128k32_first(int (&d)[64],
+                                                       uint64_t da,
+                                                       uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n"
+      "}\n"
+      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3]),
+        "=r"(d[4]), "=r"(d[5]), "=r"(d[6]), "=r"(d[7]),
+        "=r"(d[8]), "=r"(d[9]), "=r"(d[10]), "=r"(d[11]),
+        "=r"(d[12]), "=r"(d[13]), "=r"(d[14]), "=r"(d[15]),
+        "=r"(d[16]), "=r"(d[17]), "=r"(d[18]), "=r"(d[19]),
+        "=r"(d[20]), "=r"(d[21]), "=r"(d[22]), "=r"(d[23]),
+        "=r"(d[24]), "=r"(d[25]), "=r"(d[26]), "=r"(d[27]),
+        "=r"(d[28]), "=r"(d[29]), "=r"(d[30]), "=r"(d[31]),
+        "=r"(d[32]), "=r"(d[33]), "=r"(d[34]), "=r"(d[35]),
+        "=r"(d[36]), "=r"(d[37]), "=r"(d[38]), "=r"(d[39]),
+        "=r"(d[40]), "=r"(d[41]), "=r"(d[42]), "=r"(d[43]),
+        "=r"(d[44]), "=r"(d[45]), "=r"(d[46]), "=r"(d[47]),
+        "=r"(d[48]), "=r"(d[49]), "=r"(d[50]), "=r"(d[51]),
+        "=r"(d[52]), "=r"(d[53]), "=r"(d[54]), "=r"(d[55]),
+        "=r"(d[56]), "=r"(d[57]), "=r"(d[58]), "=r"(d[59]),
+        "=r"(d[60]), "=r"(d[61]), "=r"(d[62]), "=r"(d[63])
+      : "l"(da), "l"(db), "r"(0));
 }
 
 __global__ void __cluster_dims__(CLUSTER, 1, 1)
@@ -275,20 +333,21 @@ digit_matmul_wgmma(const __grid_constant__ CUtensorMap tma_a,
                    const __grid_constant__ CUtensorMap tma_b,
                    const double* __restrict__ rs,
                    const double* __restrict__ cs, double* __restrict__ out,
-                   int P, int M, int N, int Kp, int bits) {
+                   int P, int M, int N, int K, int bits) {
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   // the 128B swizzle wants 1024-byte aligned tiles
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t sA = base;
   const uint32_t sB = sA + STAGES * TILE_A;
-  const uint32_t full = sB + STAGES * TILE_B;
+  const uint32_t sLo = sB + STAGES * TILE_B;
+  const uint32_t full = sLo + TILE_LO;
   const uint32_t empty = full + STAGES * 8;
 
   const int wg = threadIdx.x / 128;
   const int tid = threadIdx.x % 128;
   const int m0 = blockIdx.y * BM;
   const int n0 = blockIdx.x * BN;
-  const int nkt = (Kp + BK - 1) / BK;
+  const int nkt = (K + BK - 1) / BK;     // >= 1: the launch refuses K = 0
 
   uint32_t rank;
   asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(rank));
@@ -320,14 +379,14 @@ digit_matmul_wgmma(const __grid_constant__ CUtensorMap tma_a,
       for (int s = 0; s < P; ++s)
         for (int p = 0; p <= s; ++p)
           for (int kt = 0; kt < nkt; ++kt) {
-            mbar_wait(empty + 8 * stage, phase ^ 1u);
+            mbar_wait_or_trap(empty + 8 * stage, phase ^ 1u);
             const uint32_t fb = full + 8 * stage;
             mbar_expect_tx(fb, STAGE_TX);
-            // this CTA's share of the A tile goes to every CTA of the
+            // this CTA's 64 rows of the A tile go to both CTAs of the
             // cluster (they share m0); the B tile is its own
-            tma_load_3d_multicast(
-                sA + stage * TILE_A + rank * (TILE_A / CLUSTER), &tma_a, fb,
-                kt * BK, m0 + rank * (BM / CLUSTER), p, (1u << CLUSTER) - 1);
+            tma_load_3d_multicast(sA + stage * TILE_A + rank * (TILE_A / 2),
+                                  &tma_a, fb, kt * BK, m0 + rank * (BM / 2),
+                                  p, 0x3);
             tma_load_3d(sB + stage * TILE_B, &tma_b, fb, kt * BK, n0, s - p);
             if (++stage == STAGES) {
               stage = 0;
@@ -337,89 +396,101 @@ digit_matmul_wgmma(const __grid_constant__ CUtensorMap tma_a,
       // the CTA stays until every consumer of the cluster has released
       // every stage: no arrival may reach it after it exits
       for (int i = 0; i < STAGES; ++i) {
-        mbar_wait(empty + 8 * stage, phase ^ 1u);
+        mbar_wait_or_trap(empty + 8 * stage, phase ^ 1u);
         if (++stage == STAGES) {
           stage = 0;
           phase ^= 1u;
         }
       }
     }
-  } else {
-    // ---- consumer warpgroups: rows 64*wg .. 64*wg+63 of the tile
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
-    const int warp = tid / 32;
-    const int lane = tid % 32;
-    int acc[64];
-    float hi[64], lo[64];
-#pragma unroll
-    for (int i = 0; i < 64; ++i) {
-      acc[i] = 0;
-      hi[i] = 0.0f;
-      lo[i] = 0.0f;
-    }
-    const uint32_t a_rows = static_cast<uint32_t>(wg) * 64 * BK;
-    int stage = 0;
-    uint32_t phase = 0;
-    int held = -1;     // stage whose wgmma group may still read shared memory
-    for (int s = 0; s < P; ++s) {
-      int scale_d = 0;
-      for (int p = 0; p <= s; ++p)
-        for (int kt = 0; kt < nkt; ++kt) {
-          mbar_wait(full + 8 * stage, phase);
-          const uint32_t ta = sA + stage * TILE_A + a_rows;
-          const uint32_t tb = sB + stage * TILE_B;
-          wgmma_fence();
-#pragma unroll
-          for (int kk = 0; kk < BK / 32; ++kk) {
-            wgmma_m64n128k32(acc, sw128_desc(ta + 32 * kk),
-                             sw128_desc(tb + 32 * kk), scale_d);
-            scale_d = 1;
-          }
-          wgmma_commit();
-          // one group stays in flight; the one before it is done reading
-          wgmma_wait<1>();
-          if (held >= 0 && tid == 0)
-            for (uint32_t r = 0; r < CLUSTER; ++r)
-              mbar_arrive_cluster(empty + 8 * held, r);
-          held = stage;
-          if (++stage == STAGES) {
-            stage = 0;
-            phase ^= 1u;
-          }
-        }
-      wgmma_wait<0>();
-      fence_acc(acc);
-      if (tid == 0)
-        for (uint32_t r = 0; r < CLUSTER; ++r)
-          mbar_arrive_cluster(empty + 8 * held, r);
-      held = -1;
-      const float sc = ldexpf(1.0f, -bits * (s + 2));
-#pragma unroll
-      for (int i = 0; i < 64; ++i) combine(hi[i], lo[i], acc[i], sc);
-    }
+    return;
+  }
 
-    const int r0 = m0 + wg * 64 + warp * 16 + lane / 4;
-    const int c0 = n0 + 2 * (lane % 4);
+  // ---- consumer warpgroups: rows 64*wg .. 64*wg+63 of the tile
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  // lo[i] of consumer thread t at word 256 i + t: conflict-free
+  float* lo = reinterpret_cast<float*>(smem_raw + (sLo - smem_u32(smem_raw))) +
+              threadIdx.x;
+  int acc[64];
+  float hi[64];
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = r0 + 8 * h;
-      if (r >= M) continue;
-      const double rsc = rs[r];
-      double* orow = out + static_cast<long long>(r) * N;
+  for (int i = 0; i < 64; ++i) {
+    hi[i] = 0.0f;
+    lo[256 * i] = 0.0f;
+  }
+  const uint32_t a_rows = static_cast<uint32_t>(wg) * 64 * BK;
+  int stage = 0;
+  uint32_t phase = 0;
+  int held = -1;       // stage whose wgmma group may still read shared memory
+  // this warpgroup is done reading `stage`
+  auto release = [&](int st) {
+    if (tid == 0)
+      for (uint32_t r = 0; r < CLUSTER; ++r)
+        mbar_arrive_cluster(empty + 8 * st, r);
+  };
+  // One k-tile: four k32 steps. The first tile of a group starts the sum,
+  // so the accumulator is dead from each combine to the next group.
+  auto tile = [&](auto first) {
+    mbar_wait(full + 8 * stage, phase);
+    const uint32_t ta = sA + stage * TILE_A + a_rows;
+    const uint32_t tb = sB + stage * TILE_B;
+    wgmma_fence();
+    if constexpr (decltype(first)::value)
+      wgmma_m64n128k32_first(acc, sw128_desc(ta), sw128_desc(tb));
+    else
+      wgmma_m64n128k32(acc, sw128_desc(ta), sw128_desc(tb));
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        const int c = c0 + 8 * j;
-        const int i = 4 * j + 2 * h;
-        if (c + 1 < N && (N & 1) == 0) {
-          double2 v;
-          v.x = epilogue(hi[i], lo[i], rsc, cs[c]);
-          v.y = epilogue(hi[i + 1], lo[i + 1], rsc, cs[c + 1]);
-          *reinterpret_cast<double2*>(orow + c) = v;
-        } else {
-          if (c < N) orow[c] = epilogue(hi[i], lo[i], rsc, cs[c]);
-          if (c + 1 < N) orow[c + 1] = epilogue(hi[i + 1], lo[i + 1], rsc,
-                                                cs[c + 1]);
-        }
+    for (int kk = 1; kk < BK / 32; ++kk)
+      wgmma_m64n128k32(acc, sw128_desc(ta + 32 * kk),
+                       sw128_desc(tb + 32 * kk));
+    wgmma_commit();
+    // one group stays in flight; the one before it is done reading
+    wgmma_wait<1>();
+    if (held >= 0) release(held);
+    held = stage;
+    if (++stage == STAGES) {
+      stage = 0;
+      phase ^= 1u;
+    }
+  };
+  for (int s = 0; s < P; ++s) {
+    // the k-tiles of group s: A_p . B_{s-p} for p = 0..s, in the
+    // producer's order
+    tile(std::true_type{});
+    for (int t = 1; t < (s + 1) * nkt; ++t) tile(std::false_type{});
+    wgmma_wait<0>();
+    fence_acc(acc);
+    release(held);
+    held = -1;
+    const float sc = ldexpf(1.0f, -bits * (s + 2));
+#pragma unroll
+    for (int i = 0; i < 64; ++i) combine(hi[i], lo[256 * i], acc[i], sc);
+  }
+
+  const int r0 = m0 + wg * 64 + warp * 16 + lane / 4;
+  const int c0 = n0 + 2 * (lane % 4);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + 8 * h;
+    if (r >= M) continue;
+    const double rsc = rs[r];
+    double* orow = out + static_cast<long long>(r) * N;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int c = c0 + 8 * j;
+      const int i = 4 * j + 2 * h;
+      if (c + 1 < N && (N & 1) == 0) {
+        double2 v;
+        v.x = epilogue(hi[i], lo[256 * i], rsc, cs[c]);
+        v.y = epilogue(hi[i + 1], lo[256 * (i + 1)], rsc, cs[c + 1]);
+        *reinterpret_cast<double2*>(orow + c) = v;
+      } else {
+        if (c < N) orow[c] = epilogue(hi[i], lo[256 * i], rsc, cs[c]);
+        if (c + 1 < N)
+          orow[c + 1] = epilogue(hi[i + 1], lo[256 * (i + 1)], rsc,
+                                 cs[c + 1]);
       }
     }
   }
@@ -567,11 +638,12 @@ EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// TMA map of a K-major digit stack [P, rows, Kp]: boxes of box_rows rows x
-// 128 bytes of one digit, 128B swizzle, zero fill past every edge.
-CUresult stack_map(CUtensorMap* map, const void* ptr, int P, int rows,
+// TMA map of a K-major digit stack [P, rows, Kp] read over its first K
+// columns (K >= 1; rows Kp bytes apart): boxes of box_rows rows x 128
+// bytes of one digit, 128B swizzle, zero fill past every edge.
+CUresult stack_map(CUtensorMap* map, const void* ptr, int P, int rows, int K,
                    int Kp, int box_rows) {
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(Kp),
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(K),
                               static_cast<cuuint64_t>(rows),
                               static_cast<cuuint64_t>(P)};
   const cuuint64_t strides[2] = {
@@ -585,6 +657,62 @@ CUresult stack_map(CUtensorMap* map, const void* ptr, int P, int rows,
                         CU_TENSOR_MAP_SWIZZLE_128B,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// A map is a function of its arguments alone, so maps are kept by them:
+// a stack read again (the static operator digits, the allocator's reused
+// buffers) costs a lookup instead of an encoding.
+struct MapKey {
+  uintptr_t ptr;
+  int P, rows, K, Kp, box_rows;
+  bool operator==(const MapKey& o) const {
+    return ptr == o.ptr && P == o.P && rows == o.rows && K == o.K &&
+           Kp == o.Kp && box_rows == o.box_rows;
+  }
+};
+struct MapKeyHash {
+  size_t operator()(const MapKey& k) const {
+    size_t h = std::hash<uintptr_t>()(k.ptr);
+    for (int v : {k.P, k.rows, k.K, k.Kp, k.box_rows})
+      h = h * 1000003u ^ std::hash<int>()(v);
+    return h;
+  }
+};
+
+CUresult cached_map(CUtensorMap* map, const void* ptr, int P, int rows, int K,
+                    int Kp, int box_rows) {
+  static std::mutex mu;
+  static std::unordered_map<MapKey, CUtensorMap, MapKeyHash> maps;
+  const MapKey key{reinterpret_cast<uintptr_t>(ptr), P, rows, K, Kp,
+                   box_rows};
+  std::lock_guard<std::mutex> lock(mu);
+  const auto it = maps.find(key);
+  if (it != maps.end()) {
+    *map = it->second;
+    return CUDA_SUCCESS;
+  }
+  const CUresult cr = stack_map(map, ptr, P, rows, K, Kp, box_rows);
+  if (cr == CUDA_SUCCESS) {
+    if (maps.size() >= 4096) maps.clear();
+    maps.emplace(key, *map);
+  }
+  return cr;
+}
+
+// The kernel's dynamic shared memory exceeds the default 48 KB: allowed
+// once per device.
+cudaError_t allow_smem() {
+  static std::atomic<uint64_t> done{0};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const uint64_t bit = dev < 64 ? uint64_t(1) << dev : 0;
+  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
+  e = cudaFuncSetAttribute(digit_matmul_wgmma,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           TC_SMEM);
+  if (e == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
+  return e;
 }
 
 }  // namespace
@@ -615,9 +743,10 @@ extern "C" int digit_matmul_launch(const void* ad, const void* bd,
   }
   if (encode_tiled() == nullptr)
     return static_cast<int>(cudaErrorSymbolNotFound);
+  if (K < 1) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap ma, mb;
-  CUresult cr = stack_map(&ma, ad, P, M, Kp, BM / CLUSTER);
-  if (cr == CUDA_SUCCESS) cr = stack_map(&mb, bd, P, N, Kp, BN);
+  CUresult cr = cached_map(&ma, ad, P, M, K, Kp, BM / CLUSTER);
+  if (cr == CUDA_SUCCESS) cr = cached_map(&mb, bd, P, N, K, Kp, BN);
   if (cr != CUDA_SUCCESS) return 1000 + static_cast<int>(cr);
   // whole clusters along N: a CTA past the last column loads zeros and
   // stores nothing, but still sends its share of A to its peer
@@ -625,10 +754,9 @@ extern "C" int digit_matmul_launch(const void* ad, const void* bd,
   const dim3 grid((nct + CLUSTER - 1) / CLUSTER * CLUSTER,
                   (M + BM - 1) / BM);
   if (grid.y > 65535u) return static_cast<int>(cudaErrorInvalidConfiguration);
-  cudaError_t e = cudaFuncSetAttribute(
-      digit_matmul_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize, TC_SMEM);
+  const cudaError_t e = allow_smem();
   if (e != cudaSuccess) return static_cast<int>(e);
   digit_matmul_wgmma<<<grid, TC_THREADS, TC_SMEM, st>>>(ma, mb, dr, dc, o, P,
-                                                        M, N, Kp, bits);
+                                                        M, N, K, bits);
   return static_cast<int>(cudaGetLastError());
 }

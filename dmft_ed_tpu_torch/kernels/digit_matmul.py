@@ -13,8 +13,10 @@ int32 digit products (see ``csrc/digit_matmul.cu`` for the schedule and
 epilogue, which both versions here follow step for step).
 
 Layout: both stacks K-major, ad [P, M, Kp] and bd [P, N, Kp], with the
-contraction axis zero-padded to Kp, a multiple of 16 (``ozaki.kpad``);
-``k`` is the true contraction length, on which the pairwise chunks fall.
+contraction axis padded to Kp, a multiple of 16 (``ozaki.kpad``); ``k`` is
+the true contraction length. Both versions, on both schedules, contract
+over the first k columns alone (the pad's contents never enter), and the
+pairwise chunks fall on k.
 
 Bound on the card: operation-bound at the main path's shapes
 (2·P(P+1)/2·M·N·k int8 operations against the int8 peak; the bytes are the
@@ -134,8 +136,8 @@ def _check(ad, bd, rs, cs, bits, k, kchunk):
 def digit_matmul(ad, bd, rs, cs, bits: int, pairwise: bool = False,
                  kchunk: int | None = None, k: int | None = None):
     """ad [P, M, Kp] int8 and bd [P, N, Kp] int8, both K-major (digit 0
-    first, zero past the true contraction length k <= Kp, Kp a multiple
-    of 16), rs [M] and cs [N] float64 -> out [M, N] float64.
+    first, Kp a multiple of 16; only the first k <= Kp columns enter),
+    rs [M] and cs [N] float64 -> out [M, N] float64.
     pairwise/kchunk select the schedule (ozaki._schedule decides it from
     the exactness bound)."""
     P, M, N, Kp, K, kchunk = _check(ad, bd, rs, cs, bits, k, kchunk)
@@ -143,6 +145,8 @@ def digit_matmul(ad, bd, rs, cs, bits: int, pairwise: bool = False,
         return digit_matmul_plain(ad, bd, rs, cs, bits, pairwise, kchunk, K)
     if ad.device.type != "cuda":
         raise ValueError(f"digit_matmul: unsupported device {ad.device}")
+    if K == 0:
+        raise ValueError("digit_matmul: the kernel takes k >= 1")
     for t, nm in ((ad, "ad"), (bd, "bd")):
         if t.data_ptr() % 16:
             raise ValueError(f"digit_matmul: {nm} is not 16-byte aligned "

@@ -16,10 +16,13 @@ the wrapper takes its plain version:
   also where k is a multiple of the chunk and Kp > k (the chunks fall on
   the true k, not on Kp);
 * the wrapper refuses a stack whose Kp is not a multiple of 16 and a
-  non-contiguous stack.
+  non-contiguous stack;
+* only the first k columns enter, on both schedules: nonzero pad columns
+  change no bit.
 
 The kernel itself is held against the plain version at the same K classes
-on the card (``tests/test_torch_ozaki.py::test_kernel_vs_plain_on_card``).
+on the card (``tests/test_torch_ozaki.py::test_kernel_vs_plain_on_card``),
+and with nonzero pad columns here (``test_pad_never_enters_on_card``).
 """
 
 import numpy as np
@@ -153,3 +156,38 @@ def test_plain_true_k_matches_padded():
     a = digit_matmul_plain(ad, bd, rs, cs, 7, k=20)
     b = digit_matmul_plain(ad, bd, rs, cs, 7)
     assert torch.equal(a, b)
+
+
+def _dirty(t, k, v):
+    t = t.clone()
+    t[:, :, k:] = v
+    return t
+
+
+@pytest.mark.parametrize("pairwise,kchunk", [(False, None), (True, 7)])
+def test_pad_never_enters(pairwise, kchunk):
+    ad, bd, rs, cs = _stacks()
+    ref = digit_matmul(ad, bd, rs, cs, 7, pairwise, kchunk, k=20)
+    got = digit_matmul(_dirty(ad, 20, 37), _dirty(bd, 20, -37), rs, cs, 7,
+                       pairwise, kchunk, k=20)
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pairwise,kchunk", [(False, None), (True, 39)])
+@pytest.mark.parametrize("k", [129, 924])
+def test_pad_never_enters_on_card(k, pairwise, kchunk):
+    """The kernel with nonzero pad columns against the plain version on
+    clean stacks, bitwise (run there with ``python -m pytest -m gpu
+    tests/test_torch_digit_layout.py``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    A, B = _operands(14, 300, k, 501)
+    ad, sa = tozaki._left_digits(torch.from_numpy(A).cuda(), 5, 7)
+    bd, sb = tozaki._right_digits(torch.from_numpy(B).cuda(), 5, 7)
+    rs, cs = sa.reshape(-1), sb.reshape(-1)
+    got = digit_matmul(_dirty(ad, k, 37), _dirty(bd, k, -37), rs, cs, 7,
+                       pairwise, kchunk, k=k)
+    ref = digit_matmul_plain(ad, bd, rs, cs, 7, pairwise, kchunk, k=k)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
