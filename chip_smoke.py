@@ -10,20 +10,34 @@ when any is missing or any phase fails. Phases:
    with each ptxas report and the count of tensor-core instructions
    (``IGMMA``/``IMMA``) in the library's SASS, which must not be 0;
 2. each kernel against its plain PyTorch version on the card, at every
-   shape class the main path gives it (the seven per-spin dimensions
-   C(12, n) x the dw and up families at 5x7, the 924 class at 6x6), plus a
-   ragged shape (once more with nonzero pad columns, which must not
-   enter) and the pairwise schedule forced with chunks of 8 and 39:
+   shape class the main paths give it (the seven per-spin dimensions
+   C(12, n) x the dw and up families at 5x7, the 924 class at 6x6; the
+   thick restart's zero-embedded operands, H of a 792-dim spin sector in
+   924x924, both sides; ``ozaki.fused_two_sided``'s K = 1848 product),
+   plus a ragged shape (once more with nonzero pad columns, which must
+   not enter) and the pairwise schedule forced with chunks of 8 and 39:
    bitwise against the plain version, 1e-9 against the f64 product; times
    of the kernel, the plain version and the library call, the host's
    cost of one wrapper call, achieved TOPS and the share of the bound;
-3. the main path: the Nbath=11 Bethe DMFT loop (``models.hm_bethe.run``)
-   with ``matmul_precision="ozaki5x7"``, two iterations, launch counts
-   reset just before and read just after;
+3. the first slice's path: the Nbath=11 Bethe DMFT loop
+   (``models.hm_bethe.run``) with ``lanc_method="lanczos"`` and
+   ``matmul_precision="ozaki5x7"``, one iteration (cut from two to keep
+   the script near half its time limit);
 4. precision: one fixed-bath solve on the final bath with ``native`` and
    with ``ozaki5x7``;
-5. a ``{"kernels": [...]}`` line, the card line, and as the last line
-   ``{"ok": true, "device": {...}}``.
+6. the canonical loop: ``hm_bethe.run`` with the package defaults
+   (``lanc_method="arpack"``, ``native``) at Norb=1, Nbath=6, beta=1000,
+   Lmats=Lreal=5000, dmft_error=1e-5 (``bench_e2e.py``), to convergence;
+7. the thick restart at full width: one ``EDSolver.solve`` of the Nbath=11
+   config with ``lanc_method="arpack"`` and ``chispin_flag`` on phase 3's
+   final bath, with ``native`` and with ``ozaki5x7`` (its p2 buckets run
+   the stacked restart over zero-embedded operators), held to phase 4's
+   plain-Lanczos egs and to each other;
+5. printed last, after phases 6 and 7: a ``{"kernels": [...]}`` line, the
+   card line, and as the last line ``{"ok": true, "device": {...}}``.
+
+Every path runs with the launch counts reset just before it and read just
+after it.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -58,12 +72,29 @@ TOL_EGS = 1e-8
 TOL_DOCC = 1e-7
 
 MAIN_CFG = dict(norb=1, nbath=11, nspin=1, uloc=(2.0,), beta=100.0,
-                lmats=1024, lreal=256, dmft_error=1e-12, nloop=2,
+                lmats=1024, lreal=256, dmft_error=1e-12, nloop=1,
                 lanc_niter=256, lanc_ngfiter=200, lanc_method="lanczos",
                 matmul_precision="ozaki5x7", ed_verbose=0)
 MAIN_RUN = dict(le=300, wmixing=0.5)
 # the phase-2 case whose numbers the kernels line reports
 MAIN_CASE = "dw K=924"
+
+# Phase 6: the canonical workload (BASELINE.md, bench_e2e.py run_canonical)
+# with the package defaults: lanc_method="arpack", matmul_precision="native".
+CANON_CFG = dict(norb=1, nbath=6, nspin=1, uloc=(2.0,), beta=1000.0,
+                 lmats=5000, lreal=5000, dmft_error=1e-5, ed_verbose=0)
+CANON_RUN = dict(le=500, wmixing=0.5)
+# docc at convergence: the JAX package's two converged CPU runs (0.08899,
+# artifacts/canonical_bethe.json; 0.09105, bench_e2e.py) each widened by
+# the 2e-3 backend-parity contract (PERF_NOTES.md)
+CANON_DOCC = (0.0870, 0.0931)
+
+# Phase 7: the Nbath=11 config on the thick restart, with chi_spin.
+ARPACK_CFG = dict(MAIN_CFG, lanc_method="arpack", chispin_flag=True)
+# |egs(arpack) - egs(plain Lanczos)| on one bath, both native f64
+TOL_EGS_METHODS = 1e-9
+# max|native - ozaki5x7| of chi_spin(iv) relative to max|chi_spin(iv)|
+TOL_CHI_REL = 1e-6
 
 
 def card_line() -> str:
@@ -245,7 +276,8 @@ def kernel_cases(device, cfg_kwargs):
     class at 6x6; a ragged shape; and the pairwise schedule forced with
     chunks of 8 and 39; the ragged shape again with nonzero pad columns.
     Krylov-like V from a seed. The n = 0 operators are
-    the 1x1 zero matrix, so that class takes a random 1x1 operator."""
+    the 1x1 zero matrix, so that class takes a random 1x1 operator. Then
+    the thick restart's zero-embedded operands and the fused product."""
     import numpy as np
     import torch
     from dmft_ed_tpu_torch.bath import init_bath
@@ -285,6 +317,30 @@ def kernel_cases(device, cfg_kwargs):
             ("pairwise kchunk=8", Ar, Br, 5, 7, 8, None),
             ("pairwise kchunk=39", Ar, Br, 5, 7, 39, None),
             ("pairwise kchunk=39, nonzero pad", Ar, Br, 5, 7, 39, 37)]
+    # the thick restart's stacked members at the 2^20 bucket: a 792-dim
+    # spin operator zero-embedded in 924x924 against a 924x924 member
+    # vector whose pad rows (dw) or columns (up) are zero
+    from dmft_ed_tpu_torch import ozaki
+    n_emb = cfg.ns // 2 - 1                        # C(12, 5) = 792
+    K = op(0, cfg.ns // 2, "dw").shape[0]
+    Hd, Hu = op(0, n_emb, "dw"), op(n_emb, 0, "up")
+    e = Hd.shape[0]
+    Hd_p = torch.zeros((K, K), dtype=torch.float64, device=device)
+    Hd_p[:e, :e] = Hd
+    Hu_p = torch.zeros_like(Hd_p)
+    Hu_p[:e, :e] = Hu
+    V = randn(K, K) / K
+    V_dw, V_up = V.clone(), V.clone()
+    V_dw[e:] = 0
+    V_up[:, e:] = 0
+    out += [(f"dw embedded {e} in {K}", Hd_p, V_dw, 5, 7, None, None),
+            (f"up embedded {e} in {K}", V_up, Hu_p.T, 5, 7, None, None)]
+    # fused_two_sided's product at the 924 class: [Hdw | lam V] @
+    # [lam V ; HupT], K = 2 * 924
+    H_dw, H_upT = op(0, cfg.ns // 2, "dw"), op(cfg.ns // 2, 0, "up").T
+    lam = ozaki.fused_lambda(H_dw, H_upT, V)
+    out.append((f"fused K={2 * K}", torch.cat([H_dw, lam * V], dim=1),
+                torch.cat([lam * V, H_upT], dim=0), 5, 7, None, None))
     return out
 
 
@@ -390,7 +446,91 @@ def precision_check(device, cfg_kwargs, bath):
           f"max|d gmats|={d_g:.3e}")
     if not (d_egs <= TOL_EGS and d_docc <= TOL_DOCC):
         raise AssertionError("native and ozaki5x7 solves disagree")
-    return d_egs, d_docc
+    return res["native"].egs
+
+
+def check_canonical(r):
+    """Finite results, the final dens within 1e-3 of 1 (the loop starts
+    off half filling: the JAX package's second iteration sits at 1.0032
+    on the CPU), and at convergence docc inside CANON_DOCC."""
+    import numpy as np
+    for name, arr in (("smats", r.smats), ("gmats", r.gmats),
+                      ("bath", r.bath), ("dens", r.dens), ("docc", r.docc)):
+        if not np.all(np.isfinite(arr)):
+            raise AssertionError(f"canonical loop: non-finite {name}")
+    if not np.all(np.abs(r.dens - 1.0) <= 1e-3):
+        raise AssertionError(f"canonical loop: final dens {r.dens} is not 1 "
+                             "within 1e-3")
+    docc = float(r.docc[0])
+    print(f"canonical loop: converged={r.converged} after {r.iterations} "
+          f"iterations, error {r.error:.3e}, docc={docc!r} (bounds "
+          f"{CANON_DOCC} at convergence)")
+    if r.converged and not CANON_DOCC[0] <= docc <= CANON_DOCC[1]:
+        raise AssertionError(f"canonical loop: converged docc {docc} "
+                             f"outside {CANON_DOCC}")
+
+
+def arpack_solve(device, bath, egs_lanczos):
+    """One fixed-bath EDSolver.solve of ARPACK_CFG with native and with
+    ozaki5x7 products: wall time, diag stages, the thick restart's
+    expansions and matvecs per p2 bucket and per serial sector, and the
+    kernel's launches; egs against the plain-Lanczos native egs of the same
+    bath, and native against ozaki5x7. Returns the ozaki solve's launches
+    per kernel."""
+    import numpy as np
+    import torch
+    from dmft_ed_tpu_torch.config import EDConfig
+    from dmft_ed_tpu_torch.kernels import KERNELS, reset_launches
+    from dmft_ed_tpu_torch.solver import EDSolver
+    res, launches = {}, {}
+    for prec in ("native", "ozaki5x7"):
+        cfg = EDConfig(**dict(ARPACK_CFG, matmul_precision=prec,
+                              ed_verbose=3)).validate()
+        hloc = np.zeros((cfg.nspin, cfg.nspin, cfg.norb, cfg.norb))
+        lines = []
+        solver = EDSolver(cfg, hloc, device=device, log=lambda m: lines.append(
+            m) if m.startswith("thick restart") else None)
+        reset_launches()
+        t0 = time.time()
+        res[prec] = solver.solve(bath)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        dt = time.time() - t0
+        launches[prec] = {name: fn.launches for name, fn in KERNELS.items()}
+        stages = {k: round(v, 3) for k, v in sorted(solver.timers.acc.items())}
+        print(f"arpack solve {prec}: {dt:.3f} s egs={res[prec].egs!r} "
+              f"docc={res[prec].observables.docc.tolist()} "
+              f"launches={launches[prec]}\n  stages {json.dumps(stages)}")
+        for ln in lines:
+            if "bucket" in ln or "dim=" in ln and int(ln.split("dim=")[1]
+                                                      .split()[0]) > 2 ** 17:
+                print("  " + ln)
+        print(f"  thick-restart solves: {len(lines)}")
+    a, o = res["native"], res["ozaki5x7"]
+    d_meth = abs(a.egs - egs_lanczos)
+    d_egs = abs(a.egs - o.egs)
+    d_docc = float(np.max(np.abs(a.observables.docc - o.observables.docc)))
+    chi_a, chi_o = a.chi_spin[1], o.chi_spin[1]
+    d_chi = float(np.max(np.abs(chi_a - chi_o))) / float(np.max(np.abs(chi_a)))
+    print(f"arpack vs lanczos (native): |d egs|={d_meth:.3e} (bound "
+          f"{TOL_EGS_METHODS:g}); native vs ozaki5x7: |d egs|={d_egs:.3e} "
+          f"(bound {TOL_EGS:g}) |d docc|={d_docc:.3e} (bound {TOL_DOCC:g}) "
+          f"max|d chi_spin(iv)|/max|chi_spin(iv)|={d_chi:.3e} (bound "
+          f"{TOL_CHI_REL:g})")
+    bad = []
+    if not d_meth <= TOL_EGS_METHODS:
+        bad.append("arpack and lanczos egs disagree")
+    if not (d_egs <= TOL_EGS and d_docc <= TOL_DOCC and d_chi <= TOL_CHI_REL):
+        bad.append("native and ozaki5x7 arpack solves disagree")
+    if not all(np.all(np.isfinite(x)) for r in res.values()
+               for x in r.chi_spin):
+        bad.append("non-finite chi_spin")
+    for name, n in launches["ozaki5x7"].items():
+        if n <= 0:
+            bad.append(f"the ozaki5x7 arpack solve never launched {name}")
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return launches["ozaki5x7"]
 
 
 def main() -> int:
@@ -414,18 +554,28 @@ def main() -> int:
         raise AssertionError("digit_matmul: no IGMMA/IMMA instruction in "
                              "the built library's SASS")
 
-    # ---- phases 2-4 run in a scratch cwd (the solver writes .ed files)
+    # ---- phases 2-4, 6 and 7 run in a scratch cwd (the solver writes .ed files)
     with tempfile.TemporaryDirectory() as work:
         os.chdir(work)
         try:
             # ---- phase 2: kernel vs plain at the main path's shapes
             cases = digit_matmul_cases(device,
                                        kernel_cases(device, MAIN_CFG))
-            # ---- phase 3: the main path
+            # ---- phase 3: the first slice's path
             r, obs, launches = main_path(device, MAIN_CFG, MAIN_RUN)
             check_main_path(r, obs, launches)
             # ---- phase 4: precision of the ozaki path against native f64
-            precision_check(device, MAIN_CFG, r.bath)
+            egs_lanczos = precision_check(device, MAIN_CFG, r.bath)
+            # ---- phase 6: the canonical loop with the package defaults, in
+            # a directory of its own (init_solver reads a bath restart file
+            # from the cwd, and phase 3 left one there)
+            os.mkdir("canonical")
+            os.chdir("canonical")
+            rc, _, launches_c = main_path(device, CANON_CFG, CANON_RUN)
+            os.chdir(work)
+            check_canonical(rc)
+            # ---- phase 7: the thick restart at Nbath=11, native + ozaki
+            launches_a = arpack_solve(device, r.bath, egs_lanczos)
         finally:
             os.chdir(REPO)
 
@@ -446,6 +596,13 @@ def main() -> int:
         "parity": "bitwise",
         "shape": "x".join(str(x) for x in main_case["shape"])
         + f" P={main_case['P']} B={main_case['B']}",
+        "launches_per_path": {
+            "lanczos_loop_ozaki5x7": launches["digit_matmul"],
+            "canonical_loop_native": launches_c["digit_matmul"],
+            "arpack_solve_ozaki5x7": launches_a["digit_matmul"]},
+        "ms_per_class": {c["label"]: c["ms"] for c in cases
+                         if "embedded" in c["label"]
+                         or c["label"].startswith("fused")},
     }]
     print(f"total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

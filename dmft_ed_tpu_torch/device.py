@@ -38,3 +38,14 @@ def ragged_batching(device) -> bool:
     if choice in ("0", "off", "never"):
         return False
     return torch.device(device).type == "cuda"
+
+
+def ozaki_fused() -> bool:
+    """Whether make_matvec_op encodes a block whose two spin parts are both
+    dense-Ozaki as ONE fused two-orientation product
+    (ozaki.fused_two_sided, kind "ozf") instead of two pre-sliced ones.
+    Off by default, as in the reference (its TPU measurements found the
+    fusion slower: both operands are re-sliced every call); opt in with
+    DMFT_ED_OZAKI_FUSED=1."""
+    return os.environ.get("DMFT_ED_OZAKI_FUSED", "0").lower() \
+        in ("1", "on", "always")

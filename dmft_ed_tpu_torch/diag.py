@@ -1,15 +1,20 @@
 """Spectrum determination: the sector sweep — PyTorch port of
-dmft_ed_tpu/diag.py (normal mode, plain-Lanczos T=0 path).
+dmft_ed_tpu/diag.py (normal mode).
 
-Replaces ED_DIAG.f90: per-sector choice of dense eigh vs Lanczos, T=0
-ground-state windowing, Boltzmann trimming and per-sector `neigen_sector`
-feedback (ED_DIAG.f90:49-565). Krylov vectors live on the solver's
-device; start vectors come from the reference's numpy Generator stream in
-the same draw order and are then moved to the device.
+Replaces ED_DIAG.f90: per-sector choice of dense eigh vs (thick-restart or
+plain) Lanczos, T=0 ground-state windowing vs the finite-T capacity-bounded
+state list, Boltzmann trimming with `lanc_nstates_total` auto-tuning and
+per-sector `neigen_sector` feedback (ED_DIAG.f90:49-565). Krylov vectors
+live on the solver's device; start vectors come from the reference's numpy
+Generator stream in the same draw order and are then moved to the device.
 
-Not ported yet (raise NotImplementedError): the thick-restart
-``lanc_method="arpack"`` Krylov path and its ragged p2-bucket batching,
-the site-batched sweep and the mesh-sharded solve (see ROADMAP.md).
+Batched routes: ``lanc_method="lanczos"`` sectors run in the whole-sweep
+lockstep engine (sweep_plain.py); ``"arpack"`` sectors whose dims share a
+power-of-two class run as one stacked thick restart over zero-embedded
+operators (``_solve_deferred_ragged``).
+
+Not ported (see ROADMAP.md): the site-batched sweep and the mesh-sharded
+solve.
 """
 
 from __future__ import annotations
@@ -28,11 +33,8 @@ from .bath import Bath
 from .eigenspace import StateList
 from .hamiltonian import (build_sector_hamiltonian, assemble_dense,
                           make_matvec_op)
-from .lanczos import lanczos_tridiag_op, tridiag_eigh
-
-_ARPACK_TODO = ("lanc_method='arpack' (thick-restart eigs_lanczos_op) is not "
-                "ported yet: ROADMAP.md §1, 'Thick restart'. Use "
-                "lanc_method='lanczos'.")
+from .lanczos import (_sizes, eigs_lanczos_op, lanczos_tridiag_op,
+                      tridiag_eigh)
 
 
 @dataclass
@@ -163,18 +165,41 @@ def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
+def _ncv(cfg: EDConfig, dim: int, neigen: int) -> int:
+    """Thick-restart basis size (ED_DIAG.f90's lanc_ncv rule)."""
+    return min(dim, cfg.lanc_ncv_factor * max(neigen, cfg.lanc_nstates_sector)
+               + cfg.lanc_ncv_add)
+
+
+def _log_restart(log, cfg, what, dim, neigen, ncv, niter):
+    """One line per thick-restart solve: its basis (as the solver clamps
+    it), its matvecs per member and its expansions (the first plus one per
+    restart)."""
+    if log and cfg.ed_verbose >= 3:
+        k, ncv, _ = _sizes(dim, neigen, ncv, 0)
+        log(f"thick restart: {what} k={k} ncv={ncv} matvecs={niter} "
+            f"expansions={1 + max(0, niter - ncv) // max(ncv - k, 1)}")
+
+
 def _solve_sector_lanczos(cfg: EDConfig, ham, neigen: int, rng, device,
-                          v0=None, timers=None, niter_mem=None):
+                          v0=None, timers=None, niter_mem=None, log=None):
     from contextlib import nullcontext
     tm = timers if timers is not None else (lambda name: nullcontext())
     sec = ham.sector
-    if cfg.lanc_method.lower() != "lanczos":
-        raise NotImplementedError(_ARPACK_TODO)
     with tm("diag.encode"):
         spec, arrays, blocks = make_matvec_op(ham, cfg, device)
     cplx = spec[-1].startswith("complex")
     if v0 is None:
         v0 = _draw_v0(cfg, cplx, sec.dim, rng, device)
+    if cfg.lanc_method.lower() != "lanczos":
+        ncv = _ncv(cfg, sec.dim, neigen)
+        with tm("diag.thick_restart"):
+            evals, evecs, niter = eigs_lanczos_op(
+                spec, blocks, arrays, v0, neigen, ncv,
+                maxiter=min(sec.dim, cfg.lanc_niter), tol=cfg.lanc_tolerance)
+        _log_restart(log, cfg, f"sector {sec.index} dim={sec.dim}", sec.dim,
+                     neigen, ncv, niter)
+        return np.asarray(evals), evecs
     # plain-Lanczos T=0 path: two-pass ground state — tridiagonalize
     # once, then replay the recurrence with the STORED (alpha, beta) to
     # accumulate |gs> (2n matvecs, dot-free second pass;
@@ -216,6 +241,87 @@ def _solve_sector_lanczos(cfg: EDConfig, ham, neigen: int, rng, device,
                                    al.cpu().numpy(), be.cpu().numpy(),
                                    Y[:, 0], n)
     return np.array([evals[0]]), gs[None, :]
+
+
+def _solve_deferred_ragged(cfg: EDConfig, tasks, results, rng, device,
+                           timers=None, log=None):
+    """Solve deferred single-block thick-restart sector tasks, batching
+    sectors whose flat dims share a power-of-two class into ONE stacked
+    thick restart over zero-embedded operators
+    (hamiltonian.make_padded_matvec_op + lanczos.eigs_lanczos_op_stacked).
+
+    Exact: a Krylov chain started from a zero-padded vector never leaves
+    the embedded subspace, so the Ritz spectrum is the sector's own;
+    per-member convergence and exact-subspace breakdown are finalized
+    individually by the stacked restart. A singleton bucket, one whose pad
+    exceeds twice its class (ddw_pad·dup_pad > 2·p2), or a device that
+    does not batch solves per sector.
+
+    tasks: list of (sector, ham, neigen, v0); results[sec.index] is
+    filled with (evals, evecs)."""
+    from contextlib import nullcontext
+    tm = timers if timers is not None else (lambda name: nullcontext())
+    from .device import ragged_batching
+    from .hamiltonian import make_padded_matvec_op
+    from .lanczos import eigs_lanczos_op_stacked
+    buckets = {}
+    for t in tasks:
+        p2 = 1 << (t[0].dim - 1).bit_length()
+        cplx = np.issubdtype(t[1].dtype, np.complexfloating)
+        buckets.setdefault((cplx, p2), []).append(t)
+    for (cplx, p2), ts in sorted(buckets.items(),
+                                 key=lambda kv: (kv[0][1], kv[0][0])):
+        ddw_pad = max(t[0].blocks[0].ddw for t in ts)
+        dup_pad = max(t[0].blocks[0].dup for t in ts)
+        if len(ts) < 2 or ddw_pad * dup_pad > 2 * p2 \
+                or not ragged_batching(device):
+            for sec, ham, neigen, v0 in ts:
+                results[sec.index] = _solve_sector_lanczos(
+                    cfg, ham, neigen, rng, device, v0=v0, timers=timers,
+                    log=log)
+            continue
+        nnz_up = max(t[1].hup[0].rows.size for t in ts)
+        nnz_dw = max(t[1].hdw[0].rows.size for t in ts)
+        with tm("diag.encode"):
+            spec_p = blocks_p = None
+            ops = []
+            V0 = torch.zeros((len(ts), ddw_pad * dup_pad),
+                             dtype=torch.complex128 if cplx else torch.float64,
+                             device=device)
+            for s, (sec, ham, neigen, v0) in enumerate(ts):
+                sp, ar, bl = make_padded_matvec_op(ham, cfg, ddw_pad, dup_pad,
+                                                   nnz_up, nnz_dw, device)
+                if spec_p is None:
+                    spec_p, blocks_p = sp, bl
+                elif sp != spec_p:
+                    raise AssertionError("bucket key must force a common spec")
+                ops.append(ar)
+                blk = sec.blocks[0]
+                V0[s].view(ddw_pad, dup_pad)[:blk.ddw, :blk.dup] = \
+                    v0.reshape(blk.ddw, blk.dup)
+            arrays_stacked = tuple(torch.stack([op[i] for op in ops])
+                                   for i in range(len(ops[0])))
+            del ops
+        k = max(t[2] for t in ts)
+        ncv = max(_ncv(cfg, t[0].dim, t[2]) for t in ts)
+        maxiter = max(min(t[0].dim, cfg.lanc_niter) for t in ts)
+        with tm("diag.thick_restart"):
+            evals_b, evecs_b, niter = eigs_lanczos_op_stacked(
+                spec_p, blocks_p, arrays_stacked, V0, k, ncv,
+                maxiter=maxiter, tol=cfg.lanc_tolerance)
+        del arrays_stacked, V0
+        _log_restart(log, cfg, f"bucket p2={p2} members={len(ts)} "
+                     f"pad={ddw_pad}x{dup_pad}", ddw_pad * dup_pad, k, ncv,
+                     niter)
+        for s, (sec, ham, neigen, v0) in enumerate(ts):
+            blk = sec.blocks[0]
+            ev = evals_b[s]
+            kk = min(neigen, int(np.sum(np.isfinite(ev))),
+                     evecs_b[s].shape[0])
+            vec = evecs_b[s][:kk].reshape(-1, ddw_pad, dup_pad)
+            vec = vec[:, :blk.ddw, :blk.dup].reshape(kk, sec.dim)
+            results[sec.index] = (ev[:kk], vec)
+        del evecs_b
 
 
 def _solve_deferred_plain(cfg: EDConfig, tasks, results, rng, device,
@@ -334,7 +440,9 @@ def diagonalize(cfg: EDConfig, bath: Bath, hloc: np.ndarray,
 
     # ---- route plan (structural — no per-sector H build): dense /
     # serial-Krylov sectors stream one at a time; mix-free single-block
-    # Krylov sectors batch into the whole-sweep lockstep engine.
+    # Krylov sectors batch: plain-Lanczos ones into the whole-sweep
+    # lockstep engine, thick-restart ones in power-of-two size classes
+    # into one stacked restart each (_solve_deferred_ragged).
     from .hamiltonian import single_particle_parts
     Tuu_s, _, Tud_s, P_s = single_particle_parts(cfg, bath, hloc)
     struct_mix = bool(np.any(Tud_s)) or bool(np.any(P_s)) \
@@ -349,15 +457,15 @@ def diagonalize(cfg: EDConfig, bath: Bath, hloc: np.ndarray,
     v0s = {}
     for pos, (sec, tflag, neigen) in enumerate(sweep):
         lanc_solve = (neigen < sec.dim) and (sec.dim > cfg.lanc_dim_threshold)
-        if lanc_solve and not plain:
-            raise NotImplementedError(_ARPACK_TODO)
         # every Krylov start vector is drawn HERE, in sweep order, so the
         # serial and the batched routes consume the identical rng stream
         if lanc_solve:
             v0s[pos] = _draw_v0(cfg, struct_cplx, sec.dim, rng, device)
         if lanc_solve and len(sec.blocks) == 1 and not struct_mix:
-            routes.append(("sweep",))
-            buckets.setdefault(("sweep",), []).append(pos)
+            key = ("sweep",) if plain \
+                else (struct_cplx, 1 << (sec.dim - 1).bit_length())
+            routes.append(key)
+            buckets.setdefault(key, []).append(pos)
         else:
             routes.append(None)
 
@@ -377,7 +485,8 @@ def diagonalize(cfg: EDConfig, bath: Bath, hloc: np.ndarray,
                 with tm("diag.krylov_serial"):
                     evals, evecs = _solve_sector_lanczos(
                         cfg, ham, neigen, rng, device, v0=v0s.pop(pos),
-                        timers=timers, niter_mem=state.lanc_niter_sector)
+                        timers=timers, niter_mem=state.lanc_niter_sector,
+                        log=log)
             else:
                 with tm("diag.dense_eigh"):
                     evals, evecs = _solve_sector_dense(ham, neigen, device)
@@ -393,9 +502,13 @@ def diagonalize(cfg: EDConfig, bath: Bath, hloc: np.ndarray,
                         tasks.append((s2, ham2, n2, v0s.pop(p)))
                 res = {}
                 with tm("diag.krylov_ragged"):
-                    _solve_deferred_plain(
-                        cfg, tasks, res, rng, device, timers=timers,
-                        niter_mem=state.lanc_niter_sector)
+                    if plain:
+                        _solve_deferred_plain(
+                            cfg, tasks, res, rng, device, timers=timers,
+                            niter_mem=state.lanc_niter_sector)
+                    else:
+                        _solve_deferred_ragged(cfg, tasks, res, rng, device,
+                                               timers=timers, log=log)
                 del tasks
                 for p in buckets[routes[pos]]:
                     pending[p] = res[sweep[p][0].index]

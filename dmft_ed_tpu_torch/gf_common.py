@@ -6,10 +6,12 @@ spectral accumulation Σ_j w_j/(z - p_j) is one vectorized outer-product
 sum over all frequencies on the host (ED_GF_NORMAL.f90:580-632).
 
 Routes of ResolventBatch.run, in order: the wide-concat sweep engine
-(sweep_plain — every real chain of mix-free single-block target sectors,
-when the device batches), then stacked scans of structurally identical
-operators. The ragged zero-embedded merge and the mesh-sharded route are
-not ported yet (NotImplementedError / absent).
+(sweep_plain — every chain of mix-free single-block target sectors, when
+the device batches, except complex chains against real Ozaki operators);
+then, when the device batches, the ragged merge: groups whose flat dims
+share a power-of-two class zero-embed into one bucket shape and run as one
+stacked scan; then stacked scans of structurally identical operators. The
+mesh-sharded route is not ported (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -132,10 +134,12 @@ class ResolventBatch:
                     tuple((tuple(a.shape), str(a.dtype)) for a in e[2]))
             groups.setdefault(gkey, []).append(e)
         from .device import ragged_batching
+        consumed = set()
         if ragged_batching(dev):
-            # where the reference zero-embeds paddable groups whose flat
-            # dims share a power-of-two class into one ragged scan, the port
-            # raises until that route is ported (same selection rule)
+            # ragged merge: paddable groups whose flat dims share a
+            # power-of-two class zero-embed into one bucket shape and run
+            # as ONE stacked scan (different-dimension sectors on the
+            # member axis)
             buckets: Dict[tuple, list] = {}
             for gkey, ents in groups.items():
                 bkey = self._bucket_key(ents[0])
@@ -145,13 +149,21 @@ class ResolventBatch:
                 if len(gkeys) < 2:
                     continue
                 ents = [e for gk in gkeys for e in groups[gk]]
-                pad = max(e[1][0][0] for e in ents) \
-                    * max(e[1][0][1] for e in ents)
+                ddw_pad = max(e[1][0][0] for e in ents)
+                dup_pad = max(e[1][0][1] for e in ents)
+                # aspect-ratio guard: in the small, dispatch-bound regime
+                # accept up to ~4x the dim class (merging transposed
+                # (a,b)/(b,a) target shapes); large sectors are
+                # compute-bound — require tight packing
+                pad = ddw_pad * dup_pad
                 if pad > 2 * bkey[-1] and not (pad <= 4 * bkey[-1]
                                                and pad <= 16384):
                     continue
-                self._run_ragged()
+                yield from self._run_ragged(ents, ddw_pad, dup_pad)
+                consumed.update(gkeys)
         for gkey, ents in groups.items():
+            if gkey in consumed:
+                continue
             spec, blocks, nlanc, _ = gkey
             # common channel-count bucket (next power of two), as in the
             # reference, so the batch shapes match its
@@ -238,7 +250,55 @@ class ResolventBatch:
         return (spec[5], str(cfg.dtype), cfg.matmul_precision,
                 cfg.dense_matmul_threshold, p2)
 
-    def _run_ragged(self):
-        raise NotImplementedError(
-            "ragged zero-embedded GF batching (gf_common._run_ragged) is not "
-            "ported yet: ROADMAP.md §1, 'ragged and stacked diag/GF routes'")
+    def _run_ragged(self, ents, ddw_pad, dup_pad):
+        """ONE stacked Lanczos scan over sectors of UNEQUAL shape: each
+        member operator zero-embeds into the bucket block (ddw_pad,
+        dup_pad) through hamiltonian.make_padded_matvec_op — exact, since
+        the padded components of H and of the start vectors are zero, the
+        chain never leaves the embedded subspace and its coefficients are
+        the unpadded recurrence's. Members sub-group by their padded spec
+        (a spec can still differ, e.g. when only some members carry
+        nonzeros of a COO kind), each sub-group its own stack."""
+        from .hamiltonian import make_padded_matvec_op
+        hams = [self.cache.ham(e[5]) for e in ents]
+        nnz_up = max(h.hup[0].rows.size for h in hams)
+        nnz_dw = max(h.hdw[0].rows.size for h in hams)
+        subgroups: Dict[tuple, list] = {}
+        for e, h in zip(ents, hams):
+            sp, ar, bl = make_padded_matvec_op(h, self.cfg, ddw_pad, dup_pad,
+                                               nnz_up, nnz_dw,
+                                               self.cache.device)
+            subgroups.setdefault((sp, bl), []).append((e, ar))
+        for (sp, bl), sub in subgroups.items():
+            yield from self._run_ragged_stack(sp, bl, sub, ddw_pad, dup_pad)
+
+    def _run_ragged_stack(self, spec_p, blocks_p, sub, ddw_pad, dup_pad):
+        from .lanczos import lanczos_tridiag_op_stacked
+        ents = [e for e, _ in sub]
+        ops = [ar for _, ar in sub]
+        nlanc = max(e[3] for e in ents)
+        Bpad = 1 << (max(len(e[4]) for e in ents) - 1).bit_length()
+        # complex excitation vectors (chi's combined channels) against a
+        # real operator promote the whole stack, as np.result_type does
+        vdt = np.result_type(np.dtype(spec_p[5]),
+                             *(j[0].dtype for e in ents for j in e[4]))
+        V0 = np.zeros((len(ents), Bpad, ddw_pad * dup_pad), dtype=vdt)
+        for si, e in enumerate(ents):
+            ddw, dup = e[1][0]
+            for b in range(Bpad):
+                j = e[4][min(b, len(e[4]) - 1)]
+                V0[si, b].reshape(ddw_pad, dup_pad)[:ddw, :dup] = \
+                    j[0].reshape(ddw, dup)
+        arrays_stacked = tuple(torch.stack([op[i] for op in ops])
+                               for i in range(len(ops[0])))
+        al, be, ns = lanczos_tridiag_op_stacked(
+            spec_p, blocks_p, arrays_stacked,
+            torch.as_tensor(V0, device=self.cache.device), nlanc)
+        al, be, ns = al.cpu().numpy(), be.cpu().numpy(), ns.cpu().numpy()
+        for si, e in enumerate(ents):
+            # clamp to the member's OWN chain length: the first k Lanczos
+            # coefficients do not depend on later steps, so this reproduces
+            # the per-sector run (the shared longer scan would otherwise add
+            # spurious duplicate Ritz values)
+            yield from self._weights_poles(e[4], al[si], be[si],
+                                           np.minimum(ns[si], e[3]))

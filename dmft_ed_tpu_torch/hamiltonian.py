@@ -582,8 +582,11 @@ def np_unflatten_blocks(x: np.ndarray, sector: Sector):
 #   arrays — a flat tuple of device tensors (diagonals, dense / Ozaki-digit
 #            / COO operator data, mix coefficients).
 # Term kinds: "dense" (O @ V or V @ O^T), "ozl"/"ozr" (pre-sliced Ozaki
-# digits, left/right operand, through kernels.digit_matmul), "coo"
-# (gather + index_add_), "none" (empty operator).
+# digits, left/right operand, through kernels.digit_matmul), "ozf" (both
+# spin parts as raw f64 matrices for ozaki.fused_two_sided, opt-in), "coo"
+# (gather + index_add_), "none" (empty operator). A complex vector against
+# a real dense or Ozaki operator goes through as its real and imaginary
+# parts (``_real_linear``).
 
 def _vdtype(ham: SectorHamiltonian, cfg: EDConfig):
     if cfg.dtype != "float64":
@@ -641,14 +644,24 @@ def _ozaki_right(digits, scales, v, nsl, bits):
     return R.reshape(v.shape[:-1] + (R.shape[-1],))
 
 
-def make_matvec_op(ham: SectorHamiltonian, cfg: EDConfig, device):
+def make_matvec_op(ham: SectorHamiltonian, cfg: EDConfig, device, pad=None):
     """Returns (spec, arrays, blocks): use with `apply_op(spec, arrays, V)`
-    or `lanczos.lanczos_tridiag_op`. Every array lives on `device`."""
+    or `lanczos.lanczos_tridiag_op`. Every array lives on `device`.
+
+    pad=(ddw_pad, dup_pad, nnz_up, nnz_dw) zero-embeds a single-block,
+    no-mix sector operator into a (ddw_pad, dup_pad) block (the ragged-
+    batching form, see make_padded_matvec_op). One encoder serves both
+    forms so the dense/Ozaki/COO rules cannot diverge: with pad, the
+    decision is made from the PADDED shape, and COO nonzeros pad to the
+    bucket maximum with zero-valued entries at (0, 0)."""
     sec = ham.sector
+    if pad is not None and (len(sec.blocks) != 1 or ham.mix):
+        raise ValueError("padded op requires a single block and no mix terms")
     is_cplx, vdtype = _vdtype(ham, cfg)
     rdtype = torch.float64
     thr = cfg.dense_matmul_threshold
     ozaki_n, ozaki_b = _ozaki_params(cfg, is_cplx)
+    from .device import ozaki_fused
 
     arrays = []
 
@@ -660,10 +673,33 @@ def make_matvec_op(ham: SectorHamiltonian, cfg: EDConfig, device):
     def dev(a, dtype):
         return torch.as_tensor(np.asarray(a), device=device).to(dtype)
 
-    def enc(coo: SpinCOO, side: str):
+    def embed(dense, n_pad):
+        if n_pad is None:
+            return dense
+        d = np.zeros((n_pad, n_pad), dtype=complex if is_cplx else float)
+        d[:dense.shape[0], :dense.shape[1]] = dense
+        return d
+
+    def enc_fused(coo_up: SpinCOO, coo_dw: SpinCOO, up_pad=None,
+                  dw_pad=None):
+        """('ozf', n, b, iHdw, iHupT) when both spin parts of a block
+        encode dense-Ozaki and the fused product is asked for
+        (device.ozaki_fused): one K-concat product for Hdw@V + V@HupT
+        (ozaki.fused_two_sided), with the raw f64 matrices pushed."""
+        if not ozaki_n or not ozaki_fused():
+            return None
+        if (max(coo_up.shape) if up_pad is None else up_pad) > thr or \
+                (max(coo_dw.shape) if dw_pad is None else dw_pad) > thr:
+            return None
+        du = embed(coo_up.to_dense(), up_pad)
+        dd = embed(coo_dw.to_dense(), dw_pad)
+        return ("ozf", ozaki_n, ozaki_b) + push(dev(dd, rdtype),
+                                                dev(du.T, rdtype))
+
+    def enc(coo: SpinCOO, side: str, n_pad=None, nnz_pad=0):
         n, m = coo.shape
-        if max(n, m) <= thr:
-            dense = coo.to_dense()
+        if (max(n, m) if n_pad is None else n_pad) <= thr:
+            dense = embed(coo.to_dense(), n_pad)
             if ozaki_n:
                 from . import ozaki as _oz
                 d = dev(dense, rdtype)
@@ -672,18 +708,44 @@ def make_matvec_op(ham: SectorHamiltonian, cfg: EDConfig, device):
                 idx = push(op.digits, op.scales)
                 return ("oz" + side[0], ozaki_n, ozaki_b) + idx
             return ("dense",) + push(dev(dense, vdtype))
-        if coo.rows.size == 0:
+        if (coo.rows.size if n_pad is None else nnz_pad) == 0:
             return ("none",)
-        return ("coo",) + push(dev(coo.rows, torch.int64),
-                               dev(coo.cols, torch.int64),
-                               dev(coo.vals, vdtype))
+        rows, cols, vals = coo.rows, coo.cols, coo.vals
+        if n_pad is not None:
+            k = coo.rows.size
+            rows = np.zeros(nnz_pad, dtype=np.int64)
+            cols = np.zeros(nnz_pad, dtype=np.int64)
+            vals = np.zeros(nnz_pad, dtype=complex if is_cplx else float)
+            rows[:k], cols[:k], vals[:k] = coo.rows, coo.cols, coo.vals
+        return ("coo",) + push(dev(rows, torch.int64), dev(cols, torch.int64),
+                               dev(vals, vdtype))
+
+    def enc_block(bi, dup_pad=None, ddw_pad=None, nnz_up=0, nnz_dw=0):
+        f = enc_fused(ham.hup[bi], ham.hdw[bi], dup_pad, ddw_pad)
+        if f is not None:
+            return ("ozf",), f
+        return (enc(ham.hup[bi], "right", dup_pad, nnz_up),
+                enc(ham.hdw[bi], "left", ddw_pad, nnz_dw))
+
+    vtag = str(vdtype).replace("torch.", "")
+    if pad is not None:
+        ddw_pad, dup_pad, nnz_up, nnz_dw = pad
+        blk = sec.blocks[0]
+        diag = np.zeros((ddw_pad, dup_pad))
+        diag[:blk.ddw, :blk.dup] = ham.diag[0]
+        diag_idx = push(dev(diag, rdtype))[0]
+        hup_spec, hdw_spec = enc_block(0, dup_pad, ddw_pad, nnz_up, nnz_dw)
+        blocks = ((ddw_pad, dup_pad),)
+        spec = (blocks, (diag_idx,), (hup_spec,), (hdw_spec,), (), vtag)
+        return spec, tuple(arrays), blocks
 
     blocks = tuple((b.ddw, b.dup) for b in sec.blocks)
     diag_idx, hup_spec, hdw_spec = [], [], []
     for bi in range(len(sec.blocks)):
         diag_idx.append(push(dev(ham.diag[bi], rdtype))[0])
-        hup_spec.append(enc(ham.hup[bi], "right"))
-        hdw_spec.append(enc(ham.hdw[bi], "left"))
+        up, dw = enc_block(bi)
+        hup_spec.append(up)
+        hdw_spec.append(dw)
     mix_spec = []
     for t in ham.mix:
         up = enc(t.up, "right") if t.up is not None else None
@@ -691,8 +753,54 @@ def make_matvec_op(ham: SectorHamiltonian, cfg: EDConfig, device):
         cidx = push(torch.tensor(t.coeff, dtype=vdtype, device=device))[0]
         mix_spec.append((t.src, t.dst, up, dw, cidx))
     spec = (blocks, tuple(diag_idx), tuple(hup_spec), tuple(hdw_spec),
-            tuple(mix_spec), str(vdtype).replace("torch.", ""))
+            tuple(mix_spec), vtag)
     return spec, tuple(arrays), blocks
+
+
+def make_padded_matvec_op(ham: SectorHamiltonian, cfg: EDConfig,
+                          ddw_pad: int, dup_pad: int, nnz_up: int = 0,
+                          nnz_dw: int = 0, device="cuda"):
+    """Zero-embed a single-block sector operator into a (ddw_pad, dup_pad)
+    block, so sectors of different shapes share one spec and stack on the
+    member axis of lanczos_tridiag_op_stacked / eigs_lanczos_op_stacked.
+
+    Exact: the padded rows and columns of H and of the start vector are
+    zero, so every Krylov vector stays in the embedded subspace and the
+    recurrence's coefficients are those of the unpadded sector. The
+    encoding (dense / Ozaki / COO) is decided from the padded shape with
+    make_matvec_op's rules (it is make_matvec_op with pad=...), so every
+    member of a bucket produces the same spec; COO nonzeros pad to
+    (nnz_up, nnz_dw) with zero entries at (0, 0)."""
+    return make_matvec_op(ham, cfg, device,
+                          pad=(ddw_pad, dup_pad, nnz_up, nnz_dw))
+
+
+def _real_linear(fn, v):
+    """fn, a real linear map, applied to v. A complex v goes through as its
+    real and its imaginary part, two real products recombined: never a
+    cast that drops the imaginary part (the JAX package's Ozaki digits
+    take only the real part of a complex operand)."""
+    if v.is_complex():
+        return torch.complex(fn(v.real), fn(v.imag))
+    return fn(v)
+
+
+def _dense_apply(dat, v, side):
+    """dat @ v (left) or v @ dat^T (right); a complex v against a real dat
+    goes through as its real and imaginary parts."""
+    fn = (lambda x: x @ dat.T) if side == "right" else (lambda x: dat @ x)
+    return fn(v) if dat.is_complex() else _real_linear(fn, v)
+
+
+def _fused(Hdw, HupT, v, nsl, bits):
+    """ozaki.fused_two_sided over v [..., ddw, dup]: one product per
+    leading index (λ is per matrix, as under the reference's vmap)."""
+    from .ozaki import fused_two_sided
+    if v.dim() == 2:
+        return fused_two_sided(Hdw, HupT, v, nsl, bits)
+    out = torch.stack([fused_two_sided(Hdw, HupT, x, nsl, bits)
+                       for x in v.reshape((-1,) + v.shape[-2:])])
+    return out.reshape(v.shape)
 
 
 def _app(kind_spec, arrays, v, side, out_dim):
@@ -700,14 +808,12 @@ def _app(kind_spec, arrays, v, side, out_dim):
     if kind == "none":
         return None
     if kind == "dense":
-        dat = arrays[kind_spec[1]]
-        return v @ dat.T if side == "right" else dat @ v
+        return _dense_apply(arrays[kind_spec[1]], v, side)
     if kind in ("ozr", "ozl"):
         nsl, bits = kind_spec[1], kind_spec[2]
         dg, sc = arrays[kind_spec[3]], arrays[kind_spec[4]]
-        if kind == "ozr":
-            return _ozaki_right(dg, sc, v, nsl, bits)
-        return _ozaki_left(dg, sc, v, nsl, bits)
+        f = _ozaki_right if kind == "ozr" else _ozaki_left
+        return _real_linear(lambda x: f(dg, sc, x, nsl, bits), v)
     rows, cols, vals = (arrays[i] for i in kind_spec[1:4])
     if side == "right":
         return _apply_spin_coo_up(v, rows, cols, vals, out_dim)
@@ -722,6 +828,11 @@ def apply_op(spec, arrays, V):
     for bi, (ddw, dup) in enumerate(blocks):
         v = V[bi]
         y = arrays[diag_idx[bi]] * v
+        if hdw_spec[bi][0] == "ozf":
+            _, nsl, bits, i_dw, i_upT = hdw_spec[bi]
+            Y.append(y + _real_linear(lambda x: _fused(
+                arrays[i_dw], arrays[i_upT], x, nsl, bits), v))
+            continue
         r = _app(hup_spec[bi], arrays, v, "right", dup)
         if r is not None:
             y = y + r

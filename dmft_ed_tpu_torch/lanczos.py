@@ -1,14 +1,23 @@
-"""Plain-Lanczos Krylov recurrences in PyTorch — port of the plain path of
-dmft_ed_tpu/lanczos.py.
+"""Krylov eigensolvers in PyTorch — port of dmft_ed_tpu/lanczos.py.
+
+Two families:
+  * the plain 3-term Lanczos recurrence (GF resolvents and the
+    ``lanc_method="lanczos"`` two-pass ground state);
+  * the thick-restart Lanczos with full two-pass reorthogonalization
+    (``eigs_lanczos*``, the ``lanc_method="arpack"`` default, replacing
+    P-ARPACK's ``sp_eigh``).
 
 The reference's ``lax.scan`` loops become Python loops over device tensors
 (no host synchronisation inside a loop: breakdown is masked on the device,
 exactly as in the reference), and its ``vmap`` axes become written-out
-leading batch dimensions. Dot products are the exact ``vdot`` form
-(``_pdot_pair``), the reference's CPU semantics.
+leading batch dimensions or, for the stacked thick restart, a loop over the
+members. Dot products are the exact ``vdot`` form (``_pdot_pair``), the
+reference's CPU semantics. The thick restart's Rayleigh–Ritz step runs on
+the host, as in the reference: ``betas`` and ``T`` are read once per
+restart.
 
-Not ported yet: the thick-restart ``eigs_lanczos_op`` family (the
-``lanc_method="arpack"`` default) — see ROADMAP.md.
+Not ported: the ``mesh=`` (site-sharded) form of the stacked restart
+(``parallel/``, ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -135,3 +144,183 @@ def lanczos_tridiag_op_stacked(spec, blocks, arrays_stacked, V0,
 
     al, be, ns = _lanczos_tridiag_impl(mv, V0, niter)
     return al.permute(1, 2, 0), be.permute(1, 2, 0), ns
+
+
+# ----------------------------------------------------------------------
+# thick-restart Lanczos with full reorthogonalization (ARPACK replacement)
+# ----------------------------------------------------------------------
+
+def _expand(matvec, V, T, j0: int, m: int):
+    """Grow the orthonormal basis V[j0+1..m] and the projection T's columns
+    j0..m-1, in place; returns betas [m - j0] on V's device.
+
+    V: [m+1, dim] with rows <= j0 filled (orthonormal; row j0 the next
+    start vector), rows beyond zero, so the full-basis Gram-Schmidt
+    products need no masking. T: [m+1, m+1] projected operator
+    (arrowhead + tridiagonal after restarts). Two orthogonalization passes
+    give machine-precision orthogonality. A breakdown (beta < 1e-13) is
+    masked on the device: the next vector is zero."""
+    one = torch.ones((), dtype=torch.float64, device=V.device)
+    zero = torch.zeros((), dtype=torch.float64, device=V.device)
+    betas = []
+    for j in range(j0, m):
+        w = matvec(V[j])
+        h1 = V.conj() @ w
+        w = w - h1 @ V
+        h2 = V.conj() @ w
+        w = w - h2 @ V
+        h = h1 + h2
+        b = torch.sqrt(_pdot_pair(w, w))
+        safe = b > _BREAKDOWN
+        V[j + 1] = torch.where(safe, one, zero) * w / torch.where(safe, b, one)
+        T[:, j] = h
+        T[j, :] = h.conj()
+        T[j + 1, j] = b
+        T[j, j + 1] = b
+        betas.append(b)
+    return torch.stack(betas)
+
+
+def _rayleigh_ritz(Th, betas_h, j0: int, ncv: int, k: int, tol: float):
+    """Host Rayleigh–Ritz of one expanded basis, the reference's rules:
+    the basis is cut at the first breakdown (exact subspace, m_eff), the
+    k_eff = min(k, m_eff) lowest Ritz pairs are tested by their residual
+    |beta_m · y_last| < max(tol, 1e-14)·max(1, |e|). Returns (evals_all,
+    Y, m_eff, k_eff, beta_m, converged)."""
+    m_eff = ncv
+    bad = np.nonzero(betas_h < _BREAKDOWN)[0]
+    if bad.size:
+        m_eff = j0 + int(bad[0]) + 1
+    evals_all, Y = np.linalg.eigh(Th[:m_eff, :m_eff])
+    k_eff = min(k, m_eff)
+    beta_m = float(Th[m_eff, m_eff - 1].real) if m_eff < ncv + 1 else 0.0
+    resid = np.abs(beta_m * Y[m_eff - 1, :k_eff])
+    conv = bool(np.all(resid < max(tol, 1e-14)
+                       * np.maximum(1.0, np.abs(evals_all[:k_eff]))))
+    return evals_all, Y, m_eff, k_eff, beta_m, conv
+
+
+def _ritz_vectors(Y, k: int, V, m_eff: int):
+    """[k, dim] = Y[:, :k]^T @ V[:m_eff] on V's device."""
+    Yk = torch.as_tensor(np.ascontiguousarray(Y[:, :k]), device=V.device)
+    return Yk.to(V.dtype).T @ V[:m_eff]
+
+
+def _thick_restart(V, T, Y, evals_all, beta_m: float, k: int):
+    """Restart one member in place with its k lowest Ritz vectors and the
+    residual direction V[ncv]: T becomes diag(evals) with the coupling
+    row/column s = beta_m · Y[last, :k]."""
+    ncv = V.shape[0] - 1
+    ritz = _ritz_vectors(Y, k, V, ncv)
+    V[k] = V[ncv]
+    V[:k] = ritz
+    V[k + 1:] = 0
+    Tn = np.zeros((ncv + 1, ncv + 1), dtype=np.result_type(Y.dtype,
+                                                            np.float64))
+    Tn[np.arange(k), np.arange(k)] = evals_all[:k]
+    s = beta_m * Y[ncv - 1, :k]
+    Tn[k, :k] = np.conj(s)
+    Tn[:k, k] = s
+    T.copy_(torch.as_tensor(Tn, device=T.device).to(T.dtype))
+
+
+def _sizes(dim: int, neigen: int, ncv: int, maxiter: int):
+    neigen = min(neigen, dim)
+    ncv = int(min(max(ncv, neigen + 2), dim))
+    restarts = max(1, int(np.ceil(maxiter / max(ncv - neigen, 1))))
+    return neigen, ncv, restarts
+
+
+def eigs_lanczos(matvec, v0, neigen: int, ncv: int, maxiter: int = 512,
+                 tol: float = 1e-12):
+    """Lowest `neigen` eigenpairs of the Hermitian operator `matvec` (flat
+    [dim] -> [dim]). Thick-restart Lanczos: expand a Krylov basis to ncv
+    vectors (full reorthogonalization), Rayleigh–Ritz on the projected
+    (ncv x ncv) matrix, restart with the k = neigen best Ritz vectors plus
+    the residual direction (ED_DIAG.f90:149-166's sp_eigh / P-ARPACK).
+
+    Returns (evals [k_eff] ascending, numpy; evecs [k_eff, dim] on v0's
+    device; matvec count)."""
+    dim = v0.shape[0]
+    k, ncv, restarts = _sizes(dim, neigen, ncv, maxiter)
+    V = torch.zeros((ncv + 1, dim), dtype=v0.dtype, device=v0.device)
+    V[0] = v0 / torch.linalg.vector_norm(v0)
+    T = torch.zeros((ncv + 1, ncv + 1), dtype=v0.dtype, device=v0.device)
+    niter = 0
+    j0 = 0
+    for _ in range(restarts):
+        betas = _expand(matvec, V, T, j0, ncv)
+        niter += ncv - j0
+        evals_all, Y, m_eff, k_eff, beta_m, conv = _rayleigh_ritz(
+            T.cpu().numpy(), betas.cpu().numpy(), j0, ncv, k, tol)
+        if conv or m_eff < ncv or niter >= maxiter:
+            break
+        _thick_restart(V, T, Y, evals_all, beta_m, k_eff)
+        j0 = k_eff
+    return evals_all[:k_eff], _ritz_vectors(Y, k_eff, V, m_eff), niter
+
+
+def eigs_lanczos_op(spec, blocks, arrays, v0, neigen: int, ncv: int,
+                    maxiter: int = 512, tol: float = 1e-12):
+    """eigs_lanczos with the operator in spec/arrays form (v0 flat
+    [dim])."""
+    return eigs_lanczos(_op_matvec(spec, blocks, arrays), v0, neigen, ncv,
+                        maxiter, tol)
+
+
+def eigs_lanczos_op_stacked(spec, blocks, arrays_stacked, V0, neigen: int,
+                            ncv: int, maxiter: int = 512, tol: float = 1e-12,
+                            mesh=None):
+    """Lockstep thick-restart Lanczos over S structurally identical
+    operators (arrays with a leading member axis [S, ...]; V0 [S, dim]):
+    every restart expands each running member's basis, then runs the
+    Rayleigh–Ritz of eigs_lanczos per member on the host. A member that
+    converges (or meets an exact-subspace breakdown) is finalized and
+    frozen while the rest keep restarting; the last restart finalizes
+    all. The reference vmaps the expansion over every member, frozen ones
+    included, and discards theirs; here a frozen member is not expanded,
+    which changes no result.
+
+    Returns (evals [S, k] numpy, padded with inf where a member has
+    k_eff < k; evecs list of [k_eff, dim]; matvec count per member)."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "eigs_lanczos_op_stacked(mesh=...): the site-sharded restart "
+            "waits for parallel/ (ROADMAP.md §1 item 15)")
+    S, dim = V0.shape
+    k, ncv, restarts = _sizes(dim, neigen, ncv, maxiter)
+    V = torch.zeros((S, ncv + 1, dim), dtype=V0.dtype, device=V0.device)
+    V[:, 0] = V0 / torch.linalg.vector_norm(V0, dim=1, keepdim=True)
+    T = torch.zeros((S, ncv + 1, ncv + 1), dtype=V0.dtype, device=V0.device)
+    mvs = [_op_matvec(spec, blocks, tuple(a[s] for a in arrays_stacked))
+           for s in range(S)]
+    out_evals = [None] * S
+    out_evecs = [None] * S
+    running = list(range(S))
+    niter = 0
+    j0 = 0
+    for it in range(restarts):
+        betas = torch.stack([_expand(mvs[s], V[s], T[s], j0, ncv)
+                             for s in running])
+        niter += ncv - j0
+        betas_h = betas.cpu().numpy()                   # [running, ncv - j0]
+        Th = T.cpu().numpy()
+        last = niter >= maxiter or it == restarts - 1
+        still = []
+        for i, s in enumerate(running):
+            evals_all, Y, m_eff, k_eff, beta_m, conv = _rayleigh_ritz(
+                Th[s], betas_h[i], j0, ncv, k, tol)
+            if conv or m_eff < ncv or last:
+                out_evals[s] = evals_all[:k_eff]
+                out_evecs[s] = _ritz_vectors(Y, k_eff, V[s], m_eff)
+            else:
+                # m_eff == ncv, so k_eff == k for every running member
+                _thick_restart(V[s], T[s], Y, evals_all, beta_m, k)
+                still.append(s)
+        running = still
+        if not running:
+            break
+        j0 = k
+    evals = np.stack([np.pad(e, (0, k - len(e)), constant_values=np.inf)
+                      for e in out_evals])
+    return evals, out_evecs, niter

@@ -187,6 +187,52 @@ def matmul(A, B, nslices: int = 6, bits: int = _BITS):
                         pairwise, kchunk, k=k)
 
 
+def _pow2_ceil_f64(r):
+    """2^ceil(log2(r)) for r > 0 f64, exactly, from the IEEE bit fields
+    (frexp: r = m·2^e, m in [0.5, 1); an exact power of two has m = 0.5)."""
+    m, e = torch.frexp(r)
+    c = e.to(torch.int64) - (m == 0.5).to(torch.int64)
+    return ((torch.clamp(c, -1022, 1023) + 1023) << 52).view(torch.float64)
+
+
+def fused_lambda(Hdw, HupT, V):
+    """λ of fused_two_sided, a 0-d f64 tensor on V's device: the power of
+    two 2^ceil(log2(max|H| / max|V|)) that brings the Krylov operand to the
+    Hamiltonian blocks' magnitude (1 where either maximum is 0)."""
+    mh = torch.maximum(Hdw.abs().amax(), HupT.abs().amax())
+    mv = V.abs().amax()
+    one = torch.ones((), dtype=torch.float64, device=V.device)
+    ratio = torch.where(mv > 0, torch.where(mh > 0, mh, one) / mv, one)
+    return _pow2_ceil_f64(ratio)
+
+
+def fused_two_sided(Hdw, HupT, V, nslices: int, bits: int = _BITS):
+    """Hdw @ V + V @ HupT as ONE concatenated Ozaki product:
+
+        [Hdw | λV] @ [λV ; HupT] = λ (Hdw @ V + V @ HupT)
+
+    over the doubled contraction axis k = ddw + dup, through the
+    digit-matmul kernel once (the reference's opt-in
+    ``device.ozaki_fused``). λ (``fused_lambda``) is a power of two
+    computed on the device, so the merge changes only the digit
+    decomposition, not the represented product; the result's row scales
+    carry the 1/λ. (The JAX package computes λ with exp2/log2, which XLA
+    rounds on the CPU, so its λ is not always a power of two.)
+
+    Hdw [ddw, ddw] f64; HupT [dup, dup] f64 (already transposed — the
+    matvec applies V @ HupT); V [ddw, dup] f64."""
+    lam = fused_lambda(Hdw, HupT, V)
+    Vl = lam * V
+    L = torch.cat([Hdw, Vl], dim=1)                 # [ddw, ddw + dup]
+    R = torch.cat([Vl, HupT], dim=0)                # [ddw + dup, dup]
+    k = L.shape[1]
+    ad, sa = _left_digits(L, nslices, bits)
+    bd, sb = _right_digits(R, nslices, bits)
+    pairwise, kchunk = _schedule(k, nslices, bits)
+    return digit_matmul(ad, bd, (sa / lam).reshape(-1), sb.reshape(-1), bits,
+                        pairwise, kchunk, k=k)
+
+
 class SlicedMatrix:
     """A pre-sliced constant LEFT operand A of A @ B (the per-spin
     Hamiltonian blocks, reused across hundreds of Lanczos iterations).

@@ -1,5 +1,5 @@
 """Solver orchestration: init + the fixed solve pipeline — PyTorch port of
-dmft_ed_tpu/solver.py (ed_mode="normal"; no mesh, no susceptibilities).
+dmft_ed_tpu/solver.py (ed_mode="normal"; no mesh).
 
 Replaces ED_MAIN.f90: ``ed_init_solver`` (bath allocation/init/pack,
 :61-152) and ``ed_solve`` (set bath -> diagonalize -> Green's functions ->
@@ -37,6 +37,10 @@ class SolveResult:
     egs: float = 0.0
     zeta: float = 1.0
     nstates: int = 0
+    chi_spin: tuple = None
+    chi_dens: tuple = None
+    chi_dens_mix: tuple = None
+    chi_pair: tuple = None
 
 def _default_log(msg):
     print(msg, flush=True)
@@ -59,10 +63,6 @@ class EDSolver:
         if cfg.ed_mode != "normal":
             raise NotImplementedError(
                 f"ed_mode={cfg.ed_mode!r} is not ported yet (ROADMAP.md §1)")
-        if cfg.chispin_flag or cfg.chidens_flag or cfg.chipair_flag:
-            raise NotImplementedError(
-                "susceptibilities (chi.py) are not ported yet "
-                "(ROADMAP.md §1)")
         self.cfg = cfg
         self.device = resolve(device)
         self.suffix = suffix
@@ -120,6 +120,8 @@ class EDSolver:
             res.smats, res.sreal, res.g0mats, res.g0real = \
                 build_sigma_normal(cfg, bath, self.hloc, res.gmats,
                                    res.greal, device=self.device)
+        if cfg.chispin_flag or cfg.chidens_flag or cfg.chipair_flag:
+            self._solve_chi(res, bath, slist, zeta, finite_t)
         with self.timers("observables"):
             res.observables = compute_observables(cfg, slist, zeta, bath,
                                                   self.hloc, finite_t)
@@ -150,6 +152,28 @@ class EDSolver:
                      + f"  egs={res.egs:.9f}")
         self.result = res
         return res
+
+    def _solve_chi(self, res, bath, slist, zeta, finite_t) -> None:
+        """The susceptibilities the flags ask for, each written with
+        io.write_chi (ED_MAIN.f90's buildchi calls)."""
+        from . import chi as chi_mod
+        cfg = self.cfg
+        args = (cfg, slist, zeta, bath, self.hloc, finite_t, self.log)
+        kinds = []
+        if cfg.chispin_flag:
+            kinds.append(("chi_spin", "spinChi", chi_mod.build_chi_spin))
+        if cfg.chidens_flag:
+            kinds.append(("chi_dens", "densChi", chi_mod.build_chi_dens))
+            if cfg.norb > 1:
+                kinds.append(("chi_dens_mix", "densChi_mix",
+                              chi_mod.build_chi_dens_mix))
+        if cfg.chipair_flag:
+            kinds.append(("chi_pair", "pairChi", chi_mod.build_chi_pair))
+        for field_, name, build in kinds:
+            with self.timers("chi_resolvents"):
+                out = build(*args, device=self.device)
+            setattr(res, field_, out)
+            edio.write_chi(cfg, name, *out, self.suffix)
 
     # ------------------------------------------------------------------
     def chi2_fitgf(self, fg, bath_flat: np.ndarray, ispin=None,

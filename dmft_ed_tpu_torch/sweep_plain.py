@@ -29,7 +29,8 @@ import numpy as np
 import torch
 
 from .config import EDConfig
-from .hamiltonian import SectorHamiltonian, _ozaki_params, _vdtype
+from .hamiltonian import (SectorHamiltonian, _dense_apply, _ozaki_params,
+                          _vdtype)
 from .lanczos import _pdot_pair, _BREAKDOWN
 
 
@@ -163,7 +164,7 @@ def _sweep_applier(spec):
                                       arrays[dw_ops[g][2]], C, ozaki_n,
                                       ozaki_b)
             else:
-                R = arrays[dw_ops[g][1]] @ C
+                R = _dense_apply(arrays[dw_ops[g][1]], C, "left")
             off = 0
             for s in mem:
                 dup = sec_entries[s][1]
@@ -180,7 +181,7 @@ def _sweep_applier(spec):
                                             arrays[up_ops[g][2]], ozaki_n,
                                             ozaki_b)
             else:
-                R = C @ arrays[up_ops[g][1]].T
+                R = _dense_apply(arrays[up_ops[g][1]], C, "right")
             off = 0
             for s in mem:
                 ddw = sec_entries[s][0]

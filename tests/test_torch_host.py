@@ -220,6 +220,7 @@ def test_import_leaves_out_jax():
             "import dmft_ed_tpu_torch\n"
             "import dmft_ed_tpu_torch.models.hm_bethe\n"
             "import dmft_ed_tpu_torch.convert, dmft_ed_tpu_torch.fit\n"
+            "import dmft_ed_tpu_torch.chi\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'dmft_ed_tpu' or "
             "m.startswith('dmft_ed_tpu.'))\n"
