@@ -1,5 +1,6 @@
-"""Closed-form bath functions Δ(z), G0(z), G0^{-1}(z) in PyTorch — port of
-dmft_ed_tpu/bath_fns.py for ed_mode="normal".
+"""Closed-form bath functions Δ(z), FΔ(z), G0(z), F0(z), G0^{-1}(z) in
+PyTorch — port of dmft_ed_tpu/bath_fns.py for ed_mode "normal" and
+"superc".
 
 Vectorized over (bath level × frequency); differentiable, so the chi^2 fit
 (fit.py) takes its gradients from torch.autograd instead of the reference's
@@ -8,9 +9,10 @@ hand-coded derivatives (ED_FIT_CHI2/fitgf_normal_normal.f90:341-359).
 Conventions:
   * x: complex frequency tensor [L] (i*wm on the Matsubara axis, w+i*eps real)
   * returns [Nspin, Nspin, Norb, Norb, L] complex128
+  * `axis` = "mats" | "real" switches the superc denominator
+    (Im(x)^2 + e^2 + d^2 vs -x^2 + e^2 + d^2, delta_bath_{mats,real}_main).
 
-Not ported yet: the superc (anomalous FΔ, F0, Nambu inversions) and nonsu2
-branches — they raise NotImplementedError.
+Not ported yet: the nonsu2 branches — they raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -33,32 +35,54 @@ def bath_params(bath: Bath, device) -> Dict[str, torch.Tensor]:
     return out
 
 
-def _require_normal(cfg: EDConfig):
-    if cfg.ed_mode != "normal":
+def _require_ported(cfg: EDConfig):
+    if cfg.ed_mode == "nonsu2":
         raise NotImplementedError(
-            f"bath_fns: ed_mode={cfg.ed_mode!r} is not ported yet "
-            "(ROADMAP.md §1, superc / nonsu2 items)")
+            "bath_fns: ed_mode='nonsu2' is not ported yet "
+            "(ROADMAP.md §1, nonsu2 item)")
+
+
+def _superc_den(x, e, d, axis):
+    """den[..., k, L]: mats Im(x)^2 + e^2 + d^2, real -x^2 + e^2 + d^2."""
+    ed2 = (e ** 2 + d ** 2)[..., None]
+    if axis == "mats":
+        return (x.imag ** 2 + ed2).to(x.dtype)
+    return -(x * x) + ed2
 
 
 def delta(cfg: EDConfig, x, p, axis: str = "mats") -> torch.Tensor:
     """Hybridization Δ(x) [Nspin,Nspin,Norb,Norb,L]."""
-    _require_normal(cfg)
+    _require_ported(cfg)
     ns_, no = cfg.nspin, cfg.norb
     L = x.shape[0]
     out = torch.zeros((ns_, ns_, no, no, L), dtype=torch.complex128,
                       device=x.device)
     ar = torch.arange(no, device=x.device)
-    bt = cfg.bath_type
+    bt, sc = cfg.bath_type, cfg.ed_mode == "superc"
     if bt == "normal":
-        # Δ_aa = Σ_k V_a(k)^2 / (x - E_a(k))
-        d = torch.einsum("sak,sakl->sal", (p["v"] ** 2).to(x.dtype),
-                         1.0 / (x[None, None, None, :] - p["e"][..., None]))
+        if sc:
+            # Δ_aa = -Σ_k V^2 (x + E) / Den
+            den = _superc_den(x, p["e"], p["d"], axis)       # [s,a,k,L]
+            num = (p["v"] ** 2)[..., None] * (x[None, None, None, :]
+                                              + p["e"][..., None])
+            d = -torch.sum(num / den, dim=2)
+        else:
+            # Δ_aa = Σ_k V_a(k)^2 / (x - E_a(k))
+            d = torch.einsum("sak,sakl->sal", (p["v"] ** 2).to(x.dtype),
+                             1.0 / (x[None, None, None, :]
+                                    - p["e"][..., None]))
         for s in range(ns_):
             out[s, s, ar, ar] = d[s]
     elif bt == "hybrid":
-        ge = 1.0 / (x[None, None, :] - p["e"][:, 0, :, None])   # [s,k,L]
         v = p["v"].to(x.dtype)
-        d = torch.einsum("sak,sbk,skl->sabl", v, v, ge)
+        if sc:
+            den = _superc_den(x, p["e"][:, 0, :], p["d"][:, 0, :],
+                              axis)                            # [s,k,L]
+            num = x[None, None, :] + p["e"][:, 0, :, None]
+            d = -torch.einsum("sak,sbk,skl->sabl", v, v, num / den)
+        else:
+            ge = 1.0 / (x[None, None, :] - p["e"][:, 0, :, None])  # [s,k,L]
+            d = torch.einsum("sak,sbk,skl->sabl", v, v, ge)
         for s in range(ns_):
             out[s, s] = d[s]
     else:  # replica: Δ = Σ_k vr* (x - h_k)^{-1} vr
@@ -70,6 +94,31 @@ def delta(cfg: EDConfig, x, p, axis: str = "mats") -> torch.Tensor:
         w2 = (torch.conj(p["vr"]) * p["vr"]).real
         d = torch.einsum("k,klij->lij", w2.to(inv.dtype), inv)
         out = d.reshape(L, ns_, no, ns_, no).permute(1, 3, 2, 4, 0)
+    return out
+
+
+def fdelta(cfg: EDConfig, x, p, axis: str = "mats") -> torch.Tensor:
+    """Anomalous FΔ(x) (superc only; fdelta_bath_mats_main); zero in the
+    other modes."""
+    ns_, no = cfg.nspin, cfg.norb
+    out = torch.zeros((ns_, ns_, no, no, x.shape[0]), dtype=torch.complex128,
+                      device=x.device)
+    if cfg.ed_mode != "superc":
+        return out
+    if cfg.bath_type == "normal":
+        den = _superc_den(x, p["e"], p["d"], axis)           # [s,a,k,L]
+        num = (p["d"] * p["v"] ** 2)[..., None]
+        f = torch.sum(num / den, dim=2)                      # [s,a,L]
+        ar = torch.arange(no, device=x.device)
+        for s in range(ns_):
+            out[s, s, ar, ar] = f[s]
+    else:  # hybrid
+        den = _superc_den(x, p["e"][:, 0, :], p["d"][:, 0, :], axis)
+        num = p["d"][:, 0, :, None] / den                    # [s,k,L]
+        v = p["v"].to(x.dtype)
+        f = -torch.einsum("sak,sbk,skl->sabl", v, v, num)
+        for s in range(ns_):
+            out[s, s] = f[s]
     return out
 
 
@@ -91,8 +140,45 @@ def invg0(cfg: EDConfig, x, p, hloc, axis: str = "mats") -> torch.Tensor:
     return zmu * eye - hl - D
 
 
+def _nambu_g0(cfg: EDConfig, x, p, hloc, axis, anomalous: bool):
+    """Normal (G0) or anomalous (F0) block of the inverse noninteracting
+    Nambu matrix [[(x+mu) - Hloc - Δ, -FΔ], [-FΔ, (x-mu) + Hloc + Δ*]]:
+    a 2x2 inverse per (spin, orbital) for a normal bath, a 2Norb x 2Norb
+    one per spin for a hybrid bath."""
+    ns_, no = cfg.nspin, cfg.norb
+    out = torch.zeros((ns_, ns_, no, no, x.shape[0]), dtype=torch.complex128,
+                      device=x.device)
+    F = fdelta(cfg, x, p, axis)
+    if cfg.bath_type == "normal":
+        ig = invg0(cfg, x, p, hloc, axis)
+        for s in range(ns_):
+            for a in range(no):
+                fg = ig[s, s, a, a]
+                ff = -F[s, s, a, a]
+                det = torch.abs(fg) ** 2 + ff * ff
+                out[s, s, a, a] = (ff if anomalous else torch.conj(fg)) / det
+        return out
+    hl = torch.as_tensor(hloc, device=x.device).to(torch.complex128)
+    D = delta(cfg, x, p, axis)
+    eye = torch.eye(no, dtype=x.dtype, device=x.device)[None]
+    for s in range(ns_):
+        Ds = D[s, s].permute(2, 0, 1)
+        blk11 = (x + cfg.xmu)[:, None, None] * eye - hl[s, s][None] - Ds
+        blk12 = -F[s, s].permute(2, 0, 1)
+        blk22 = ((x - cfg.xmu)[:, None, None] * eye + hl[s, s][None]
+                 + torch.conj(Ds))
+        Minv = torch.linalg.inv(torch.cat(
+            [torch.cat([blk11, blk12], dim=-1),
+             torch.cat([blk12, blk22], dim=-1)], dim=-2))
+        blk = Minv[:, :no, no:] if anomalous else Minv[:, :no, :no]
+        out[s, s] = blk.permute(1, 2, 0)
+    return out
+
+
 def g0and(cfg: EDConfig, x, p, hloc, axis: str = "mats") -> torch.Tensor:
     """Noninteracting impurity G0(x) (g0and_bath_mats/real_main)."""
+    if cfg.ed_mode == "superc":
+        return _nambu_g0(cfg, x, p, hloc, axis, anomalous=False)
     ns_, no = cfg.nspin, cfg.norb
     ig = invg0(cfg, x, p, hloc, axis)
     out = torch.zeros_like(ig)
@@ -107,3 +193,12 @@ def g0and(cfg: EDConfig, x, p, hloc, axis: str = "mats") -> torch.Tensor:
         m = ig[s, s].permute(2, 0, 1)                      # [L,no,no]
         out[s, s] = torch.linalg.inv(m).permute(1, 2, 0)
     return out
+
+
+def f0and(cfg: EDConfig, x, p, hloc, axis: str = "mats") -> torch.Tensor:
+    """Anomalous noninteracting F0(x) (f0and_bath_mats_main); zero in the
+    other modes."""
+    if cfg.ed_mode == "superc":
+        return _nambu_g0(cfg, x, p, hloc, axis, anomalous=True)
+    return torch.zeros((cfg.nspin, cfg.nspin, cfg.norb, cfg.norb,
+                        x.shape[0]), dtype=torch.complex128, device=x.device)

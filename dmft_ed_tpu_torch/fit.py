@@ -1,16 +1,17 @@
 """chi^2 bath fitting — PyTorch port of dmft_ed_tpu/fit.py (chi2_fitgf,
-ed_mode="normal", bath types normal / hybrid).
+ed_mode "normal" and "superc", bath types normal / hybrid).
 
 The Anderson functions come from bath_fns (differentiable torch), so the
 gradients are torch.autograd instead of the reference's hand-coded analytic
 derivatives (fitgf_normal_normal.f90:341-359). They feed the same scipy
 L-BFGS-B call as the reference: same x0, the same smooth box penalty, the
-same Δ-target pre-conditioning on the cold start and the same jittered
-restart backstop. chi^2 = Σ_n |X(iw_n) - X_And(iw_n)|^2 / W_n over the first
-Lfit Matsubara points with the reference's cg_weight schemes.
+same Δ-target pre-conditioning on the cold start (normal mode only) and
+the same jittered restart backstop. chi^2 = Σ_n |X(iw_n) - X_And(iw_n)|^2 /
+W_n over the first Lfit Matsubara points with the reference's cg_weight
+schemes; in superc the anomalous residual |F - F_And|^2 / W_n adds to it.
 
-Not ported yet: the replica-bath fit, the superc anomalous fit and the
-joint multi-site fit (chi2_fitgf_sites).
+Not ported yet: the replica-bath and nonsu2 fits and the joint multi-site
+fit (chi2_fitgf_sites).
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ from scipy.optimize import minimize
 
 from .config import EDConfig
 from .bath import unpack_bath, pack_bath, save_bath
-from .bath_fns import delta, g0and
+from .bath_fns import delta, fdelta, g0and, f0and
 
 
 def _param_bound(xw: np.ndarray) -> float:
@@ -97,11 +98,11 @@ def _component_mask(cfg: EDConfig, ispin: Optional[int],
 def _fit_pack(cfg: EDConfig, b, ispin, iorb):
     """(x0, inject) where inject maps the flat fit vector back into the
     bath-params dict differentiably."""
-    if cfg.bath_type == "replica" or cfg.ed_mode != "normal":
+    if cfg.bath_type == "replica" or cfg.ed_mode == "nonsu2":
         raise NotImplementedError(
-            "chi2_fitgf: only ed_mode='normal' with bath_type normal/hybrid "
-            "is ported yet (ROADMAP.md §1)")
-    names = ["e", "v"]
+            "chi2_fitgf: only ed_mode 'normal' and 'superc' with bath_type "
+            "normal/hybrid are ported yet (ROADMAP.md §1)")
+    names = ["e", "d", "v"] if cfg.ed_mode == "superc" else ["e", "v"]
     shapes = {n: np.asarray(getattr(b, n)).shape for n in names}
     sizes = {n: int(np.prod(shapes[n])) for n in names}
     x0 = np.concatenate([np.asarray(getattr(b, n)).ravel() for n in names])
@@ -114,6 +115,16 @@ def _fit_pack(cfg: EDConfig, b, ispin, iorb):
             off += sizes[n]
         return p
     return x0, inject
+
+
+def _model(cfg: EDConfig, x, p, hloc, scheme):
+    """Fit target functions per cg_scheme: (normal, anomalous-or-None)."""
+    sc = cfg.ed_mode == "superc"
+    if scheme == "weiss":
+        return (g0and(cfg, x, p, hloc, "mats"),
+                f0and(cfg, x, p, hloc, "mats") if sc else None)
+    return delta(cfg, x, p, "mats"), fdelta(cfg, x, p, "mats") if sc else None
+
 
 def _delta_target_from_weiss(cfg: EDConfig, g0, x, hloc) -> np.ndarray:
     """Δ_target = (z+mu) - Hloc - G0^{-1} componentwise/matrixwise."""
@@ -141,18 +152,19 @@ def _delta_target_from_weiss(cfg: EDConfig, g0, x, hloc) -> np.ndarray:
     return out
 
 
-
 def chi2_fitgf(cfg: EDConfig, fg, bath_flat: np.ndarray,
                hloc: np.ndarray, ispin: Optional[int] = None,
-               iorb: Optional[int] = None, mask=None, suffix: str = "",
-               log=None, save: bool = True, precondition: bool = True,
-               device="cuda") -> np.ndarray:
+               iorb: Optional[int] = None, fg_an=None, mask=None,
+               suffix: str = "", log=None, save: bool = True,
+               precondition: bool = True, device="cuda") -> np.ndarray:
     """Fit the bath to the target function fg [Nspin,Nspin,Norb,Norb,Lmats]
-    (Weiss field if cg_scheme='weiss', hybridization Δ if 'delta').
+    (Weiss field if cg_scheme='weiss', hybridization Δ if 'delta';
+    fg_an: the anomalous target for ed_mode='superc').
 
     precondition: run the Δ-target pre-conditioning pass before the weiss
     polish — True only on the FIRST (cold-start) fit of a DMFT loop, as in
-    the reference port (EDSolver.chi2_fitgf passes it).
+    the reference port (EDSolver.chi2_fitgf passes it). Normal mode only:
+    the superc fit starts on the weiss objective, as the reference's does.
 
     Returns the updated flat bath vector (ed_chi2_fitgf)."""
     b = unpack_bath(cfg, bath_flat, mask)
@@ -166,22 +178,28 @@ def chi2_fitgf(cfg: EDConfig, fg, bath_flat: np.ndarray,
     cmask = torch.as_tensor(cmask_np, device=device)
     tgt_np = np.asarray(fg)[..., :ldelta]
     tgt = torch.as_tensor(tgt_np, device=device)
+    tan_np = np.asarray(fg_an)[..., :ldelta] if fg_an is not None else None
+    tgt_an = torch.as_tensor(tan_np, device=device) \
+        if tan_np is not None else None
 
     x0, inject = _fit_pack(cfg, b, ispin, iorb)
     base_p = {k: torch.as_tensor(v, device=device) for k, v in
               {"e": b.e, "d": b.d, "v": b.v, "u": b.u, "h": b.h,
                "vr": b.vr}.items() if v is not None}
 
-    def make_obj(target, scheme):
+    def make_obj(target, target_an, scheme):
         def fun(xv_np):
             xv = torch.tensor(np.asarray(xv_np, dtype=np.float64),
                               device=device, requires_grad=True)
             p = dict(base_p)
             p.update(inject(xv))
-            G = g0and(cfg, x, p, hloc, "mats") if scheme == "weiss" \
-                else delta(cfg, x, p, "mats")
+            G, F = _model(cfg, x, p, hloc, scheme)
             r = (G - target) * cmask[..., None]
-            c = torch.sum(torch.abs(r) ** 2 / W) + _box_penalty(xv, bnd)
+            c = torch.sum(torch.abs(r) ** 2 / W)
+            if F is not None and target_an is not None:
+                ra = (F - target_an) * cmask[..., None]
+                c = c + torch.sum(torch.abs(ra) ** 2 / W)
+            c = c + _box_penalty(xv, bnd)
             c.backward()
             return float(c.detach()), xv.grad.cpu().numpy()
         return fun
@@ -190,19 +208,24 @@ def chi2_fitgf(cfg: EDConfig, fg, bath_flat: np.ndarray,
             "gtol": 1e-12}
     bnd = _param_bound(xw)
 
-    if precondition and cfg.cg_scheme == "weiss":
+    if precondition and cfg.cg_scheme == "weiss" \
+            and cfg.ed_mode != "superc":
         # two stages (see the reference's chi2_fitgf): pre-condition on the
         # exactly-equivalent, collapse-free Δ target, then polish on the
         # true weiss objective from that basin
         dt = _delta_target_from_weiss(cfg, tgt_np, xnp, hloc)
-        pre = minimize(make_obj(torch.as_tensor(dt, device=device), "delta"),
+        pre = minimize(make_obj(torch.as_tensor(dt, device=device), None,
+                                "delta"),
                        x0, jac=True, method="L-BFGS-B", options=opts)
         x0 = pre.x
-    fun = make_obj(tgt, cfg.cg_scheme)
+    fun = make_obj(tgt, tgt_an, cfg.cg_scheme)
     res = minimize(fun, x0, jac=True, method="L-BFGS-B", options=opts)
     # jittered restarts only as a backstop against clearly-failed fits,
     # "clearly" RELATIVE to the weighted target norm (reference semantics)
     tnorm = float(np.sum(np.abs(tgt_np * cmask_np[..., None]) ** 2 / Wnp))
+    if tan_np is not None:
+        tnorm += float(np.sum(np.abs(tan_np * cmask_np[..., None]) ** 2
+                              / Wnp))
     if res.fun > 1e-3 * max(tnorm, 1e-6):
         rng = np.random.default_rng(cfg.seed + 101)
         best = res
@@ -219,8 +242,8 @@ def chi2_fitgf(cfg: EDConfig, fg, bath_flat: np.ndarray,
         if best.fun < 0.7 * res.fun:
             res = best
     p_fit = inject(torch.as_tensor(res.x, device=device))
-    for name in ("e", "v"):
-        setattr(b, name, p_fit[name].cpu().numpy())
+    for name, val in p_fit.items():
+        setattr(b, name, val.cpu().numpy())
     if log:
         log(f"chi^2|iter{suffix}=  {res.fun:.9E} | {res.nit}")
     try:

@@ -584,9 +584,10 @@ def np_unflatten_blocks(x: np.ndarray, sector: Sector):
 # Term kinds: "dense" (O @ V or V @ O^T), "ozl"/"ozr" (pre-sliced Ozaki
 # digits, left/right operand, through kernels.digit_matmul), "ozf" (both
 # spin parts as raw f64 matrices for ozaki.fused_two_sided, opt-in), "coo"
-# (gather + index_add_), "none" (empty operator). A complex vector against
-# a real dense or Ozaki operator goes through as its real and imaginary
-# parts (``_real_linear``).
+# (gather + index_add_), "none" (empty operator); a mix entry of kind
+# "bmix" holds every dense mix term of one (src, dst) block pair, stacked.
+# A complex vector against a real dense or Ozaki operator goes through as
+# its real and imaginary parts (``_real_linear``).
 
 def _vdtype(ham: SectorHamiltonian, cfg: EDConfig):
     if cfg.dtype != "float64":
@@ -746,12 +747,27 @@ def make_matvec_op(ham: SectorHamiltonian, cfg: EDConfig, device, pad=None):
         up, dw = enc_block(bi)
         hup_spec.append(up)
         hdw_spec.append(dw)
+    # mix terms whose both spin parts encode dense batch per (src, dst)
+    # block pair (kind "bmix"; the superc pairing gives Nbath such terms per
+    # pair); every other term keeps its own launch chain
     mix_spec = []
+    pairs: dict = {}
     for t in ham.mix:
+        if t.up is not None and t.dw is not None and not ozaki_n \
+                and max(t.up.shape) <= thr and max(t.dw.shape) <= thr:
+            pairs.setdefault((t.src, t.dst), []).append(t)
+            continue
         up = enc(t.up, "right") if t.up is not None else None
         dw = enc(t.dw, "left") if t.dw is not None else None
         cidx = push(torch.tensor(t.coeff, dtype=vdtype, device=device))[0]
         mix_spec.append((t.src, t.dst, up, dw, cidx))
+    for (src, dst), ts in pairs.items():
+        upT = np.stack([t.up.to_dense().T for t in ts])
+        dw = np.stack([t.dw.to_dense() for t in ts])
+        idx = push(dev(upT, vdtype), dev(dw, vdtype),
+                   torch.tensor([t.coeff for t in ts], dtype=vdtype,
+                                device=device))
+        mix_spec.append((src, dst, ("bmix",) + idx[:2], None, idx[2]))
     spec = (blocks, tuple(diag_idx), tuple(hup_spec), tuple(hdw_spec),
             tuple(mix_spec), vtag)
     return spec, tuple(arrays), blocks
@@ -820,6 +836,16 @@ def _app(kind_spec, arrays, v, side, out_dim):
     return _apply_spin_coo_dw(v, rows, cols, vals, out_dim)
 
 
+def _mix_batched(upT, dw, coeff, v):
+    """Σ_l coeff[l] · dw[l] @ v @ upT[l] for v [..., m, k]: the mix terms
+    of one (src, dst) block pair in two batched products and one weighted
+    sum over l."""
+    def fn(x):
+        return torch.matmul(dw, torch.matmul(x.unsqueeze(-3), upT))
+    z = fn(v) if upT.is_complex() else _real_linear(fn, v)
+    return torch.sum(coeff[:, None, None] * z, dim=-3)
+
+
 def apply_op(spec, arrays, V):
     """H·V in the spec/arrays form; V is a tuple of per-block tensors
     [..., ddw, dup] (leading batch dims allowed)."""
@@ -842,6 +868,10 @@ def apply_op(spec, arrays, V):
         Y.append(y)
     for (src, dst, up, dw, cidx) in mix_spec:
         v = V[src]
+        if up is not None and up[0] == "bmix":
+            Y[dst] = Y[dst] + _mix_batched(arrays[up[1]], arrays[up[2]],
+                                           arrays[cidx], v)
+            continue
         if up is not None:
             v = _app(up, arrays, v, "right", blocks[dst][1])
             if v is None:

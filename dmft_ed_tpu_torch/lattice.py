@@ -1,8 +1,9 @@
-"""Lattice layer of the Bethe DMFT loop — main-path subset of
+"""Lattice layer of the Bethe DMFT loops — main-path subset of
 dmft_ed_tpu/lattice.py: the semicircular DOS, the DOS-integral local
-Green's function, the Weiss/Δ self-consistency, the kinetic energy and the
-convergence monitor (DMFT_Tools' dmft_gloc_matsubara/realaxis,
-dmft_self_consistency, dmft_kinetic_energy, check_convergence).
+Green's function, the Weiss/Δ self-consistency, the kinetic energy (each
+also in its superc Nambu form) and the convergence monitor (DMFT_Tools'
+dmft_gloc_matsubara/realaxis, dmft_self_consistency, dmft_kinetic_energy,
+check_convergence).
 
 O(Lmats x Le) complex work on the host in numpy, as the reference keeps it
 on its host backend.
@@ -55,6 +56,69 @@ def gloc_dos(cfg: EDConfig, ebands, dbands, h0, sigma, axis="mats"):
                                       - np.asarray(ebands[a])[None, :]),
                                    axis=1)
     return G
+
+
+def gloc_superc_dos(cfg: EDConfig, ebands, dbands, h0, sigma, sigma_an,
+                    axis="mats"):
+    """Nambu local GF from the DOS integral (dmft_gloc_matsubara superc;
+    H_nambu = [[ξ+Σ, Σᴬ], [Σᴬ, -ξ-Σ]] as in ed_ahm_disorder.f90:253-256):
+        det = (z+mu-e-Σ)(z-mu+e+Σ̄) - Σᴬ²
+        G   = ∫ D(e) (z-mu+e+Σ̄)/det ,  F = +∫ D(e) Σᴬ/det
+    where Σ̄(z) = conj(Σ(z)) on the imaginary axis and +conj(Σ(-w+iη)) on
+    the real axis (ED_WRAP_GLOC.f90:335 adds +conjg(Sreal(L-i+1)); a static
+    real Σ=s must shift the hole block by +s). Returns (G, F)."""
+    z = grids.z_mats(cfg) if axis == "mats" else grids.z_real(cfg)
+    ns_, no = cfg.nspin, cfg.norb
+    G = np.zeros((ns_, ns_, no, no, z.shape[0]), dtype=complex)
+    F = np.zeros_like(G)
+    for s in range(ns_):
+        for a in range(no):
+            sig = sigma[s, s, a, a]
+            sa = sigma_an[s, s, a, a]
+            if axis == "mats":
+                sig_bar = np.conj(sig)
+            else:
+                sig_bar = np.conj(sig[::-1])
+            e = ebands[a][None, :]
+            d = dbands[a][None, :]
+            z1 = (z + cfg.xmu - h0[a] - sig)[:, None] - e
+            z2 = (z - cfg.xmu + h0[a] + sig_bar)[:, None] + e
+            det = z1 * z2 - (sa ** 2)[:, None]
+            G[s, s, a, a] = np.sum(d * z2 / det, axis=1)
+            F[s, s, a, a] = np.sum(d * sa[:, None] / det, axis=1)
+    return G, F
+
+
+def self_consistency_superc(cfg: EDConfig, gloc, floc, sigma, sigma_an,
+                            hloc, sctype: Optional[str] = None):
+    """Nambu Weiss/Delta update (dmft_self_consistency superc form used by
+    drivers/ed_ahm_bethe.f90:92-96). Returns (weiss_normal, weiss_anomalous)
+    — for sctype='delta' these are (Δ, FΔ)."""
+    sctype = sctype or cfg.cg_scheme
+    z = grids.z_mats(cfg)
+    ns_, no = cfg.nspin, cfg.norb
+    Wn = np.zeros_like(gloc)
+    Wa = np.zeros_like(floc)
+    for s in range(ns_):
+        for a in range(no):
+            g, f = gloc[s, s, a, a], floc[s, s, a, a]
+            sig, sa = sigma[s, s, a, a], sigma_an[s, s, a, a]
+            # invert the local Nambu matrix [[g, f], [f, -g*]]
+            det = -np.abs(g) ** 2 - f ** 2
+            gi11 = -np.conj(g) / det
+            gi12 = -f / det
+            # calG0^{-1} = Gloc^{-1} + Sigma
+            c11 = gi11 + sig
+            c12 = gi12 + sa
+            c22 = -np.conj(c11)
+            if sctype == "weiss":
+                det0 = c11 * c22 - c12 ** 2
+                Wn[s, s, a, a] = c22 / det0
+                Wa[s, s, a, a] = -c12 / det0
+            else:
+                Wn[s, s, a, a] = (z + cfg.xmu - hloc[s, s, a, a] - c11)
+                Wa[s, s, a, a] = -c12
+    return Wn, Wa
 
 
 def self_consistency(cfg: EDConfig, gloc, sigma, hloc, sctype: Optional[str]
@@ -161,6 +225,38 @@ def kinetic_energy(cfg: EDConfig, ebands, dbands, h0, sigma) -> float:
             etot += (h + tail0 + tail1) * spin_fac / 2.0
     return float(etot)
 
+
+def kinetic_energy_superc(cfg: EDConfig, ebands, dbands, h0, sigma,
+                          sigma_an) -> float:
+    """Nambu kinetic energy (dmft_kinetic_energy(Ebands,Dbands,H0,S,SA)):
+    same Matsubara sum + tails as the normal case but with the Nambu
+    G_11(e, iw) = (iw - mu + e + Σ̄)/det."""
+    wm = grids.matsubara_fermionic(cfg)
+    beta = cfg.beta
+    ns_, no = cfg.nspin, cfg.norb
+    spin_fac = 2.0 if ns_ == 1 else 1.0
+    etot = 0.0
+    z = 1j * wm
+    for s in range(ns_):
+        for a in range(no):
+            sig = np.asarray(sigma[s, s, a, a])
+            sa = np.asarray(sigma_an[s, s, a, a])
+            sig_hf = sig[-1].real
+            ek = np.asarray(ebands[a]) + h0[a]
+            wk = np.asarray(dbands[a])
+            Ak = ek
+            Bk = -ek - sig_hf
+            z1 = (z + cfg.xmu - sig)[:, None] - ek[None, :]
+            z2 = (z - cfg.xmu + np.conj(sig))[:, None] + ek[None, :]
+            det = z1 * z2 - (sa ** 2)[:, None]
+            Gk = z2 / det
+            Tk = 1.0 / z[:, None] - Bk[None, :] / z[:, None] ** 2
+            Ck = Ak[None, :] * (Gk - Tk)
+            h = np.sum((Ck * wk[None, :]).real) * 4.0 / beta
+            tail0 = 2 * np.sum(0.5 * Ak * wk)
+            tail1 = 2 * np.sum(0.25 * Ak * Bk * wk) * beta
+            etot += (h + tail0 + tail1) * spin_fac / 2.0
+    return float(etot)
 
 
 class ConvergenceMonitor:

@@ -1,5 +1,5 @@
 """Solver orchestration: init + the fixed solve pipeline — PyTorch port of
-dmft_ed_tpu/solver.py (ed_mode="normal"; no mesh).
+dmft_ed_tpu/solver.py (ed_mode "normal" and "superc"; no mesh).
 
 Replaces ED_MAIN.f90: ``ed_init_solver`` (bath allocation/init/pack,
 :61-152) and ``ed_solve`` (set bath -> diagonalize -> Green's functions ->
@@ -32,6 +32,13 @@ class SolveResult:
     greal: np.ndarray = None
     g0mats: np.ndarray = None
     g0real: np.ndarray = None
+    # superc anomalous components
+    fmats: np.ndarray = None
+    freal: np.ndarray = None
+    f0mats: np.ndarray = None
+    f0real: np.ndarray = None
+    smats_an: np.ndarray = None
+    sreal_an: np.ndarray = None
     observables: Observables = None
     energy: EnergyObs = None
     egs: float = 0.0
@@ -41,6 +48,7 @@ class SolveResult:
     chi_dens: tuple = None
     chi_dens_mix: tuple = None
     chi_pair: tuple = None
+
 
 def _default_log(msg):
     print(msg, flush=True)
@@ -60,9 +68,9 @@ class EDSolver:
     def __init__(self, cfg: EDConfig, hloc: Optional[np.ndarray] = None,
                  suffix: str = "", log=None, device="cuda"):
         cfg.validate()
-        if cfg.ed_mode != "normal":
+        if cfg.ed_mode == "nonsu2":
             raise NotImplementedError(
-                f"ed_mode={cfg.ed_mode!r} is not ported yet (ROADMAP.md §1)")
+                "ed_mode='nonsu2' is not ported yet (ROADMAP.md §1)")
         self.cfg = cfg
         self.device = resolve(device)
         self.suffix = suffix
@@ -104,7 +112,6 @@ class EDSolver:
 
     def solve_from_spectrum(self, bath, slist, zeta) -> SolveResult:
         """GF/observables/files pipeline given a computed spectrum."""
-        from .gf_normal import build_gf_normal, build_sigma_normal
         cfg = self.cfg
         res = SolveResult()
         finite_t = cfg.finite_t or self.diag_state.lanc_nstates_total > 1
@@ -112,14 +119,28 @@ class EDSolver:
         res.egs, res.zeta, res.nstates = slist.emin, zeta, len(slist)
         write_state_list(cfg, slist, zeta, self.suffix)
         timers = self.timers
-        with timers("gf_resolvents"):
-            res.gmats, res.greal = build_gf_normal(
-                cfg, slist, zeta, bath, self.hloc, finite_t, self.log,
-                device=self.device)
-        with timers("sigma_dyson"):
-            res.smats, res.sreal, res.g0mats, res.g0real = \
-                build_sigma_normal(cfg, bath, self.hloc, res.gmats,
-                                   res.greal, device=self.device)
+        if cfg.ed_mode == "superc":
+            from .gf_superc import build_gf_superc, build_sigma_superc
+            with timers("gf_resolvents"):
+                res.gmats, res.greal, res.fmats, res.freal = build_gf_superc(
+                    cfg, slist, zeta, bath, self.hloc, finite_t, self.log,
+                    device=self.device)
+            with timers("sigma_dyson"):
+                (res.smats, res.sreal, res.smats_an, res.sreal_an,
+                 res.g0mats, res.g0real, res.f0mats, res.f0real) = \
+                    build_sigma_superc(cfg, bath, self.hloc, res.gmats,
+                                       res.greal, res.fmats, res.freal,
+                                       device=self.device)
+        else:
+            from .gf_normal import build_gf_normal, build_sigma_normal
+            with timers("gf_resolvents"):
+                res.gmats, res.greal = build_gf_normal(
+                    cfg, slist, zeta, bath, self.hloc, finite_t, self.log,
+                    device=self.device)
+            with timers("sigma_dyson"):
+                res.smats, res.sreal, res.g0mats, res.g0real = \
+                    build_sigma_normal(cfg, bath, self.hloc, res.gmats,
+                                       res.greal, device=self.device)
         if cfg.chispin_flag or cfg.chidens_flag or cfg.chipair_flag:
             self._solve_chi(res, bath, slist, zeta, finite_t)
         with self.timers("observables"):
@@ -131,11 +152,20 @@ class EDSolver:
         if cfg.ed_print_sigma:
             edio.print_function(cfg, "Sigma", res.smats, res.sreal,
                                 self.suffix)
+            if res.smats_an is not None:
+                edio.print_function(cfg, "Self", res.smats_an, res.sreal_an,
+                                    self.suffix)
         if cfg.ed_print_g:
             edio.print_function(cfg, "G", res.gmats, res.greal, self.suffix)
+            if res.fmats is not None:
+                edio.print_function(cfg, "F", res.fmats, res.freal,
+                                    self.suffix)
         if cfg.ed_print_g0:
             edio.print_function(cfg, "G0", res.g0mats, res.g0real,
                                 self.suffix)
+            if res.f0mats is not None:
+                edio.print_function(cfg, "F0", res.f0mats, res.f0real,
+                                    self.suffix)
         edio.write_observables(cfg, res.observables, res.egs, simp, zimp,
                                self.suffix)
         edio.write_energy(cfg, res.energy, self.suffix)
@@ -177,15 +207,16 @@ class EDSolver:
 
     # ------------------------------------------------------------------
     def chi2_fitgf(self, fg, bath_flat: np.ndarray, ispin=None,
-                   iorb=None) -> np.ndarray:
+                   iorb=None, fg_an=None) -> np.ndarray:
         from .fit import chi2_fitgf
-        # Δ-target pre-conditioning on the COLD start only (see
-        # fit.chi2_fitgf)
+        # Δ-target pre-conditioning on the COLD start only, and never in
+        # superc (see fit.chi2_fitgf)
         first = not self._fit_ran
         self._fit_ran = True
         with self.timers("bath_fit"):
             return chi2_fitgf(self.cfg, fg, bath_flat, self.hloc, ispin=ispin,
-                              iorb=iorb, mask=self.mask, suffix=self.suffix,
+                              iorb=iorb, fg_an=fg_an, mask=self.mask,
+                              suffix=self.suffix,
                               log=self.log, precondition=first,
                               device=self.device)
 
@@ -196,6 +227,9 @@ class EDSolver:
 
     def get_sigma_realaxis(self):
         return self.result.sreal
+
+    def get_self_matsubara(self):
+        return self.result.smats_an
 
     def get_gimp_matsubara(self):
         return self.result.gmats
@@ -211,3 +245,6 @@ class EDSolver:
 
     def get_mag(self):
         return self.result.observables.magz
+
+    def get_phisc(self):
+        return self.result.observables.phisc
