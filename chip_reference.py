@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""The JAX package's CPU values that ``chip_smoke.py`` holds phases 6, 8
-and 9 to.
+"""The JAX package's CPU values that ``chip_smoke.py`` holds phases 6, 8,
+9, 10, 11 and 12 to.
 
 * ``--case bethe``: the canonical Hubbard loop of phase 6
   (``dmft_ed_tpu.models.hm_bethe.run`` with the package defaults: Norb=1,
@@ -15,6 +15,28 @@ and 9 to.
   Nbath=9 config (Norb=1, U=-2, beta=100, Lmats=1024, Lreal=256,
   lanc_niter=256) on its initial bath, with ``native`` products and the
   given ``--method`` (phase 9).
+* ``--case soc``: ``dmft_ed_tpu.models.soc.run`` with the driver defaults
+  (Norb=3, Nbath=1, nonsu2, replica bath, nk=8, the package defaults)
+  for ``--nloop`` iterations: dens per orbital, |Σ_{↑↓}(iω)| (the
+  Frobenius norm of smats[0, 1]) and the DMFT error (phase 10; 3
+  iterations take about 3 minutes).
+* ``--case bhz``: ``dmft_ed_tpu.models.bhz_2d.run`` with the driver
+  defaults (Norb=2, Nbath=2, nk=20) in nonsu2 with rh = 0.2, for
+  ``--nloop`` iterations, the same values (phase 11; about 3 minutes).
+* ``--case jz2``: one fixed-bath ``EDSolver.solve`` of phase 12's
+  spin-orbit impurity at Nbath=2 (Norb=3, t2g + atomic SOC in the
+  Jz-conserving form, a replica bath, U, U', Jh) in plain N sectors:
+  egs, dens, docc, G_{aa}^{ss}(iω_0) and Σ(iω_0) (about 3 minutes). The
+  same solve in the Jz basis does not run here: its ~190 sector compiles
+  exhaust XLA:CPU's JIT memory (MemoryError); chip_smoke holds the
+  port's Jz and plain solves both to these values, as
+  tests/test_jz_basis.py holds the Jz basis to plain N.
+
+The JAX package's nonsu2 G holds <<c_{b,s'}; c†_{a,s}>> at [s, s', a, b],
+the transpose of G0's convention (ROADMAP.md §3), which the port mends.
+The nonsu2 cases here transpose the JAX package's G back before its Dyson
+(``_mend_nonsu2_g``), so the JAX loops solve the port's equations; the
+package itself is untouched.
 
 Run from the root of a checkout, on the CPU: ``python3 chip_reference.py
 --case ahm`` (a few minutes). Each case runs in a temporary directory of
@@ -97,20 +119,118 @@ def run_nbath9(method: str) -> dict:
                 dens=float(o.dens[0]), seconds=time.time() - t0)
 
 
+SOC_NLOOP = 3
+BHZ_NLOOP = 3
+BHZ_RUN = dict(rh=0.2)
+# phase 12's spin-orbit impurity: t2g + atomic SOC in the Jz-conserving
+# form (tests/test_jz_basis.py), a replica bath of Nbath copies
+JZ_CFG = dict(norb=3, nspin=2, uloc=(2.0, 2.0, 2.0), ust=1.2, jh=0.4,
+              ed_mode="nonsu2", bath_type="replica", beta=100.0, lmats=1024,
+              lreal=256, lanc_nstates_sector=2, ed_verbose=0)
+JZ_LAMBDA = 0.3
+
+
+def jz_problem(bath_mod, cfg):
+    """(hloc, bath) of phase 12 for a config of either package: hloc =
+    λ·atomic_soc_jz(), bath copy k = 0.7λ·atomic_soc_jz() + eps_k with
+    eps_k evenly on [-1, 1], vr = 0.6; the mask of Hloc plus the
+    diagonal."""
+    import numpy as np
+    from dmft_ed_tpu_torch.aux import atomic_soc_jz
+    ls = atomic_soc_jz()
+    hloc = JZ_LAMBDA * ls
+    b = bath_mod.Bath(cfg)
+    b.mask = bath_mod.replica_mask(cfg, hloc + 1e-3 * np.einsum(
+        "st,ab->stab", np.eye(2), np.eye(3)))
+    for k, eps in enumerate(np.linspace(-1.0, 1.0, cfg.nbath)):
+        b.h[..., k] = 0.7 * JZ_LAMBDA * ls + eps * np.einsum(
+            "st,ab->stab", np.eye(2), np.eye(3))
+    b.vr[:] = 0.6
+    return hloc, b
+
+
+def _mend_nonsu2_g():
+    """Transpose the JAX package's nonsu2 G back to G0's convention."""
+    import numpy as np
+    from dmft_ed_tpu import gf_nonsu2
+    orig = gf_nonsu2.build_gf_nonsu2
+
+    def mended(*a, **k):
+        return tuple(np.ascontiguousarray(G.transpose(1, 0, 3, 2, 4))
+                     for G in orig(*a, **k))
+    gf_nonsu2.build_gf_nonsu2 = mended
+
+
+def _loop_values(r) -> dict:
+    import numpy as np
+    return dict(iterations=int(r.iterations), dens=r.dens.tolist(),
+                smats_ud=float(np.linalg.norm(r.smats[0, 1])),
+                error=float(r.error))
+
+
+def run_soc(nloop: int) -> dict:
+    from dmft_ed_tpu.config import EDConfig
+    from dmft_ed_tpu.models import soc
+    _mend_nonsu2_g()
+    cfg = EDConfig(norb=3, nspin=2, nbath=1, uloc=(1.0, 1.0, 1.0),
+                   ed_mode="nonsu2", bath_type="replica", nloop=nloop,
+                   dmft_error=1e-12, ed_verbose=0).validate()
+    t0 = time.time()
+    r = soc.run(cfg, log=lambda *a, **k: None)
+    return dict(case="soc", seconds=time.time() - t0, **_loop_values(r))
+
+
+def run_bhz(nloop: int) -> dict:
+    from dmft_ed_tpu.config import EDConfig
+    from dmft_ed_tpu.models import bhz_2d
+    _mend_nonsu2_g()
+    cfg = EDConfig(norb=2, nspin=2, nbath=2, uloc=(1.0, 1.0),
+                   ed_mode="nonsu2", nloop=nloop, dmft_error=1e-12,
+                   ed_verbose=0).validate()
+    t0 = time.time()
+    r = bhz_2d.run(cfg, log=lambda *a, **k: None, **BHZ_RUN)
+    return dict(case="bhz", seconds=time.time() - t0, **_loop_values(r))
+
+
+def run_jz2() -> dict:
+    import numpy as np
+    from dmft_ed_tpu import bath
+    from dmft_ed_tpu.config import EDConfig
+    from dmft_ed_tpu.solver import EDSolver
+    _mend_nonsu2_g()
+    cfg = EDConfig(**dict(JZ_CFG, nbath=2)).validate()
+    hloc, b = jz_problem(bath, cfg)
+    t0 = time.time()
+    r = EDSolver(cfg, hloc, log=lambda m: None).solve(bath.pack_bath(b))
+    o = r.observables
+    return dict(case="jz2", egs=float(r.egs), dens=o.dens.tolist(),
+                docc=o.docc.tolist(),
+                g0=[[float(r.gmats[s, s, a, a, 0].real),
+                     float(r.gmats[s, s, a, a, 0].imag)]
+                    for s in range(2) for a in range(3)],
+                sigma0_re=r.smats[..., 0].real.ravel().tolist(),
+                sigma0_im=r.smats[..., 0].imag.ravel().tolist(),
+                seconds=time.time() - t0)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--case", choices=("bethe", "ahm", "nbath9"),
-                    required=True)
+    ap.add_argument("--case", choices=("bethe", "ahm", "nbath9", "soc", "bhz",
+                                       "jz2"), required=True)
     ap.add_argument("--method", default="arpack")
-    ap.add_argument("--nloop", type=int, default=5)
+    ap.add_argument("--nloop", type=int, default=None,
+                    help="iterations (bethe 5, soc 3, bhz 3)")
     args = ap.parse_args()
     import jax
     jax.config.update("jax_platforms", "cpu")
     with tempfile.TemporaryDirectory() as work:
         os.chdir(work)
-        out = (run_bethe(args.nloop) if args.case == "bethe"
-               else run_ahm() if args.case == "ahm"
-               else run_nbath9(args.method))
+        out = {"bethe": lambda: run_bethe(args.nloop or 5),
+               "ahm": run_ahm,
+               "nbath9": lambda: run_nbath9(args.method),
+               "soc": lambda: run_soc(args.nloop or SOC_NLOOP),
+               "bhz": lambda: run_bhz(args.nloop or BHZ_NLOOP),
+               "jz2": run_jz2}[args.case]()
         os.chdir(REPO)
     print(json.dumps(out))
     return 0

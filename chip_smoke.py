@@ -45,21 +45,45 @@ when any is missing or any phase fails. Phases:
    products C(10, n-+1) x C(10, n), under ``native`` and ``ozaki5x7``:
    applied to 4 seeded vectors and run 40 Lanczos steps, held to each
    other, with the kernel's launches;
-5. printed last, after phases 6 to 9: a ``{"kernels": [...]}`` line, the
+10. the SOC loop: ``models.soc.run`` with the driver defaults (Norb=3,
+    Nbath=1, ``ed_mode="nonsu2"``, a replica bath, nk=8, the package
+    defaults), cut to SOC_NLOOP iterations and held to the JAX package's
+    CPU values after the same count (dens per orbital, |Σ_{↑↓}(iω)|, the
+    DMFT error);
+11. the BHZ loop: ``models.bhz_2d.run`` with the driver defaults (Norb=2,
+    Nbath=2, nk=20) in nonsu2 with rh = 0.2, held the same way;
+12. the spin-orbit impurity where the card works: Norb=3, Nbath=3 (24
+    spin-orbitals), t2g + atomic SOC in the Jz-conserving form with a
+    replica bath and U, U', Jh: the sweeps and the observables of the
+    ground state's N and its neighbours (N = 11 .. 13, half filling) (a)
+    in the Jz basis (up to 440,528 states in 49 blocks) and (b) in plain
+    N sectors (up to 2,704,156 in 13 blocks), held to each other; (c)
+    one whole
+    ``EDSolver.solve`` (G, Σ) at Nbath=2 in the Jz basis and in plain N,
+    held to each other and to the JAX package's CPU values. Nonsu2
+    operators are complex, so phases 10-12 launch no digit matmul (no
+    Ozaki digits for complex operators, in either package);
+5. printed last, after phases 6 to 12: a ``{"kernels": [...]}`` line, the
    card line, and as the last line ``{"ok": true, "device": {...}}``.
+
+Phases 10-12 print their seconds, the solver's stage timers, the matvecs
+of their largest sector, the torch calls of one matvec there, and the
+peak device memory.
 
 Phase 2 also holds the kernel at phase 9's classes: the 252 block class on
 both sides and the largest pairing classes, 252 -> 210 and 210 -> 252, on
 both sides.
 
 Every path runs with the launch counts reset just before it and read just
-after it.
+after it. ``--phases 10,12`` (for development) runs phase 1 and the
+listed phases only, and prints no result line.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -161,6 +185,88 @@ SUPERC_EGS_JAX = -11.344307499556198
 TOL_OBS_METHODS = 1e-7
 # phase 9b: leading Lanczos coefficients, native against ozaki5x7
 TOL_KRYLOV = 1e-8
+
+
+# Phases 10-11: the nonsu2 k-space loops with their drivers' defaults, cut
+# to a fixed count of iterations and held to the JAX package's CPU values
+# after the same count (python3 chip_reference.py --case soc | bhz; the
+# JAX package's nonsu2 G transposed back to G0's convention there, as the
+# port computes it, ROADMAP.md §3).
+SOC_NLOOP = 3
+SOC_CFG = dict(norb=3, nspin=2, nbath=1, uloc=(1.0, 1.0, 1.0),
+               ed_mode="nonsu2", bath_type="replica", nloop=SOC_NLOOP,
+               dmft_error=1e-12, ed_verbose=0)
+SOC_RUN = dict(nk=8)
+SOC_JAX = dict(dens=[1.0513259368616312, 1.0513259368616361,
+                    1.051325936861641],
+               smats_ud=0.005907781142193307, error=0.005584614994940914)
+BHZ_NLOOP = 3
+BHZ_CFG = dict(norb=2, nspin=2, nbath=2, uloc=(1.0, 1.0), ed_mode="nonsu2",
+               nloop=BHZ_NLOOP, dmft_error=1e-12, ed_verbose=0)
+BHZ_RUN = dict(rh=0.2)
+BHZ_JAX = dict(dens=[0.5163924938396428, 1.4832745081209329],
+               smats_ud=0.03993600548790096, error=2.7476490394275097e-05)
+# dens per orbital and the DMFT error (absolute); |Σ_{↑↓}(iω)| relative.
+# On an H100 the SOC loop lands within 5.0e-8, 7.8e-9 and 1.7e-6 of the
+# JAX package's values, the BHZ loop within 3.9e-7, 6.6e-9 and 8.9e-5
+# (PERF.md): the fit's flat valley parts the trajectories of two
+# backends from the second fit on (tests/test_torch_soc.py), and the
+# BHZ loop's |Σ_{↑↓}| (0.040) is small against its spread.
+TOL_LOOP_DENS = 1e-5
+TOL_LOOP_SIGMA_REL = 1e-3
+TOL_LOOP_ERROR = 1e-6
+
+# Phase 12: t2g + atomic SOC, Jz-conserving (tests/test_jz_basis.py's
+# problem), at the width of t2g ED-DMFT studies: Nbath=3 replica copies.
+JZ_CFG = dict(norb=3, nspin=2, uloc=(2.0, 2.0, 2.0), ust=1.2, jh=0.4,
+              ed_mode="nonsu2", bath_type="replica", beta=100.0, lmats=1024,
+              lreal=256, lanc_nstates_sector=2, ed_verbose=0)
+JZ_LAMBDA = 0.3
+# the ground state's N at Nbath=3: half filling (12 of 24 spin-orbitals);
+# the full Jz sweep of all 329 sectors finds it at (N, 2Jz) = (12, 0) in
+# 222 s on an H100 (PERF.md), so the script sweeps N = 11 .. 13 only
+JZ_NGS = 12
+# the JAX package's Nbath=2 plain-N solve (python3 chip_reference.py
+# --case jz2); the port's Jz and plain solves are both held to it
+JZ2_JAX = dict(
+    egs=-10.649701857954273,
+    dens=[0.9921419554631008, 0.9921419554630929, 1.0158523372834276],
+    docc=[0.07758459635440795, 0.07758459635440115, 0.09987654215876188],
+    g0=[[0.16564232336407958, -0.05705886015407734],
+        [-0.41062781959759076, -0.11761742208744869],
+        [0.07606313803703657, -0.057148476335497925],
+        [-0.41062781959753825, -0.11761742208743614],
+        [0.16564232336407791, -0.057058860154078156],
+        [0.07606313803704512, -0.057148476335497925]],
+    sigma0_re=[0.14364971365327428, 0.0, 0.0,
+               0.0, 2.476854520932114, 0.0,
+               0.0, 0.0, 0.8232433709445867,
+               0.0, 0.0, 1.9728461946802072,
+               0.0, 0.0, 0.0,
+               0.0, -1.972846194680419, 0.0,
+               0.0, 0.0, 0.0,
+               0.0, 0.0, -1.9728461946804252,
+               1.9728461946802045, 0.0, 0.0,
+               2.476854520932394, -3.355671475613607e-18, 0.0,
+               0.0, 0.14364971365328627, 0.0,
+               0.0, 0.0, 0.8232433709444532],
+    sigma0_im=[-0.24519126304594027, 0.0, 0.0,
+               0.0, -0.5898863106880187, 0.0,
+               0.0, 0.0, -0.2614353422679748,
+               0.0, 0.0, -0.11744123038256098,
+               0.0, 0.0, 0.0,
+               0.0, 0.11744123038268459, 0.0,
+               0.0, 0.0, 0.0,
+               0.0, 0.0, 0.1174412303826509,
+               -0.11744123038258693, 0.0, 0.0,
+               -0.5898863106881125, 0.0, 0.0,
+               0.0, -0.24519126304601935, 0.0,
+               0.0, 0.0, -0.26143534226786086])
+# Jz against plain N: egs, then dens and docc
+TOL_JZ_EGS = 1e-9
+TOL_JZ_OBS = 1e-7
+# Nbath=2 against the JAX package: G_{aa}^{ss}(iω_0) and Σ(iω_0)
+TOL_JZ_GF = 1e-7
 
 
 def card_line() -> str:
@@ -410,18 +516,20 @@ def kernel_cases(device, cfg_kwargs):
     return out
 
 
-def main_path(device, cfg_kwargs, run_kwargs, loop):
+def main_path(device, cfg_kwargs, run_kwargs, loop, hloc=None):
     """The port's DMFT loop ``loop.run`` (a module of ``models``) through
     its public entry points, with per-iteration seconds, stage splits and
-    launches printed. Returns (result, per-iteration (dens, docc, egs,
-    phi), launches per kernel)."""
+    launches printed; `hloc` is the model's local Hamiltonian (zero by
+    default). Returns (result, per-iteration (dens, docc, egs, phi),
+    launches per kernel)."""
     import numpy as np
     import torch
     from dmft_ed_tpu_torch.config import EDConfig
     from dmft_ed_tpu_torch.kernels import KERNELS, reset_launches
     from dmft_ed_tpu_torch.solver import EDSolver
     cfg = EDConfig(**cfg_kwargs).validate()
-    hloc = np.zeros((cfg.nspin, cfg.nspin, cfg.norb, cfg.norb))
+    if hloc is None:
+        hloc = np.zeros((cfg.nspin, cfg.nspin, cfg.norb, cfg.norb))
     solver = EDSolver(cfg, hloc, log=lambda m: None, device=device)
     marks, snaps, obs, counts = [], [], [], []
 
@@ -805,8 +913,338 @@ def superc_operator(device):
     return launches["ozaki5x7"]
 
 
-def main() -> int:
+@contextlib.contextmanager
+def count_matvecs():
+    """Counts the serial and stacked Krylov engines' sector matvecs per
+    sector dim while active (each call of a matvec that
+    lanczos._op_matvec returns, graphed or eager; one per member and
+    step in a stacked chain); yields the {dim: calls} dict."""
+    from dmft_ed_tpu_torch import lanczos
+    counts = {}
+    orig = lanczos._op_matvec
+
+    def counting(spec, blocks, arrays):
+        mv = orig(spec, blocks, arrays)
+        d = sum(a * b for a, b in blocks)
+
+        def counted(x):
+            counts[d] = counts.get(d, 0) + 1
+            return mv(x)
+        return counted
+    lanczos._op_matvec = counting
+    try:
+        yield counts
+    finally:
+        lanczos._op_matvec = orig
+
+
+def matvec_calls(cfg, sec, bath, hloc, device):
+    """(torch calls of one apply_op of sector `sec`, its wall ms eager,
+    its wall ms replayed from the Krylov engines' CUDA graph, its mix
+    entries): a TorchFunctionMode counts every torch function, operator
+    and tensor method the matvec reaches. The graph's result must equal
+    the eager one bitwise."""
     import torch
+    from torch.overrides import TorchFunctionMode
+    from dmft_ed_tpu_torch import lanczos
+    from dmft_ed_tpu_torch.hamiltonian import (build_sector_hamiltonian,
+                                               make_matvec_op, apply_op,
+                                               flatten_blocks,
+                                               unflatten_blocks)
+
+    class Count(TorchFunctionMode):
+        n = 0
+
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    ham = build_sector_hamiltonian(cfg, sec, bath, hloc)
+    spec, arrays, blocks = make_matvec_op(ham, cfg, device)
+    V = unflatten_blocks(torch.randn(sec.dim, dtype=torch.complex128,
+                                     device=device), blocks)
+    apply_op(spec, arrays, V)
+    with Count():
+        apply_op(spec, arrays, V)
+    x = flatten_blocks(V)
+
+    def wall_ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        for _ in range(5):
+            y = fn(x)
+        torch.cuda.synchronize()
+        return (time.time() - t0) / 5 * 1e3, y
+    ms, y = wall_ms(lambda v: flatten_blocks(apply_op(
+        spec, arrays, unflatten_blocks(v, blocks))))
+    graphed = lanczos._op_matvec(spec, blocks, arrays)
+    graphed(x)
+    ms_g, y_g = wall_ms(graphed)
+    if not torch.equal(y, y_g):
+        raise AssertionError(f"sector {sec.qn}: the graphed matvec differs "
+                             "from the eager one")
+    return Count.n, ms, ms_g, len(spec[4])
+
+
+def _stages(timers) -> str:
+    return json.dumps({k: round(v, 3) for k, v in sorted(timers.acc.items())})
+
+
+def _peak_gib():
+    import torch
+    return torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def nonsu2_loop(device, loop, cfg_kwargs, run_kwargs, hloc, ref):
+    """Phases 10-11: ``loop.run`` through main_path, with the matvecs and
+    the torch calls per matvec of the largest sector and the peak device
+    memory; held to the JAX package's values `ref` after the same count
+    of iterations. Returns the launches per kernel."""
+    import numpy as np
+    import torch
+    from dmft_ed_tpu_torch.bath import replica_mask, unpack_bath
+    from dmft_ed_tpu_torch.config import EDConfig
+    from dmft_ed_tpu_torch.sectors import sector_table
+    name = loop.__name__.split(".")[-1]
+    cfg = EDConfig(**cfg_kwargs).validate()
+    torch.cuda.reset_peak_memory_stats()
+    with count_matvecs() as mv:
+        r, _, launches = main_path(device, cfg_kwargs, run_kwargs, loop,
+                                   hloc=hloc)
+    peak = _peak_gib()
+    sec = max(sector_table(cfg).sectors, key=lambda x: x.dim)
+    mask = replica_mask(cfg, hloc) if cfg.bath_type == "replica" else None
+    calls, ms, ms_g, nmix = matvec_calls(
+        cfg, sec, unpack_bath(cfg, r.bath, mask), hloc, device)
+    sud = float(np.linalg.norm(r.smats[0, 1]))
+    d_dens = float(np.max(np.abs(r.dens - np.asarray(ref["dens"]))))
+    d_sud = abs(sud - ref["smats_ud"]) / ref["smats_ud"]
+    d_err = abs(r.error - ref["error"])
+    print(f"{name}: largest sector dim {sec.dim} ({len(sec.blocks)} blocks, "
+          f"{nmix} mix entries): {mv.get(sec.dim, 0)} matvecs, "
+          f"{calls} torch calls and {ms:.3f} ms per matvec ({ms_g:.3f} ms "
+          f"from its CUDA graph); peak device "
+          f"memory {peak:.3f} GiB\n  dens={r.dens.tolist()} "
+          f"|S_ud|={sud!r} error={r.error!r}; against the JAX package's: "
+          f"max|d dens|={d_dens:.3e} (bound {TOL_LOOP_DENS:g}) "
+          f"|d S_ud|/|S_ud|={d_sud:.3e} (bound {TOL_LOOP_SIGMA_REL:g}) "
+          f"|d error|={d_err:.3e} (bound {TOL_LOOP_ERROR:g})")
+    bad = [f"non-finite {f}" for f in ("smats", "gmats", "bath", "dens")
+           if not np.all(np.isfinite(getattr(r, f)))]
+    if r.iterations != cfg.nloop:
+        bad.append(f"{r.iterations} iterations, not {cfg.nloop}")
+    if not (d_dens <= TOL_LOOP_DENS and d_sud <= TOL_LOOP_SIGMA_REL
+            and d_err <= TOL_LOOP_ERROR):
+        bad.append("disagrees with the JAX package")
+    if bad:
+        raise AssertionError(f"{name} loop: " + "; ".join(bad))
+    return launches
+
+
+def jz_problem(cfg):
+    """(hloc, bath) of phase 12: hloc = λ·atomic_soc_jz(); bath copy k =
+    0.7λ·atomic_soc_jz() + eps_k, eps_k evenly on [-1, 1]; vr = 0.6; the
+    mask of Hloc plus the diagonal (chip_reference.py's jz_problem)."""
+    import numpy as np
+    from dmft_ed_tpu_torch.aux import atomic_soc_jz
+    from dmft_ed_tpu_torch.bath import Bath, replica_mask
+    ls = atomic_soc_jz()
+    hloc = JZ_LAMBDA * ls
+    one = np.einsum("st,ab->stab", np.eye(2), np.eye(3))
+    b = Bath(cfg)
+    b.mask = replica_mask(cfg, hloc + 1e-3 * one)
+    for k, eps in enumerate(np.linspace(-1.0, 1.0, cfg.nbath)):
+        b.h[..., k] = 0.7 * JZ_LAMBDA * ls + eps * one
+    b.vr[:] = 0.6
+    return hloc, b
+
+
+def jz_sweep(device, cfg):
+    """Phase 12 (a)/(b): the sector sweep and the observables of cfg, with
+    the stage timers, the matvecs and torch calls per matvec of the
+    largest swept sector and the peak device memory. Returns (egs, dens,
+    docc, N of the ground state)."""
+    import torch
+    from dmft_ed_tpu_torch.diag import diagonalize, sectors_mask
+    from dmft_ed_tpu_torch.observables import compute_observables
+    from dmft_ed_tpu_torch.sectors import sector_table
+    from dmft_ed_tpu_torch.timer import Timers
+    hloc, bath = jz_problem(cfg)
+    tab = sector_table(cfg)
+    mask = sectors_mask(cfg, tab)
+    swept = [sec for sec in tab.sectors if mask[sec.index]]
+    big = max(swept, key=lambda x: x.dim)
+    timers = Timers(None)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    with count_matvecs() as mv:
+        with timers("diagonalize"):
+            slist, zeta, _ = diagonalize(cfg, bath, hloc, device=device,
+                                         timers=timers)
+        with timers("observables"):
+            obs = compute_observables(cfg, slist, zeta, bath, hloc, False)
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    peak = _peak_gib()
+    calls, ms, ms_g, nmix = matvec_calls(cfg, big, bath, hloc, device)
+    basis = "Jz" if cfg.jz_basis else "plain N"
+    print(f"spin-orbit Nbath={cfg.nbath} {basis}: {len(swept)} sectors swept "
+          f"in {dt:.3f} s, egs={slist.emin!r} ({len(slist)} states in "
+          f"{sorted({s.sector.qn[1:] for s in slist})}) "
+          f"dens={obs.dens.tolist()} docc={obs.docc.tolist()}\n  largest "
+          f"sector dim {big.dim} ({len(big.blocks)} blocks, {nmix} mix "
+          f"entries): {mv.get(big.dim, 0)} matvecs, {calls} torch calls and "
+          f"{ms:.3f} ms per matvec ({ms_g:.3f} ms from its CUDA graph); "
+          f"{sum(mv.values())} matvecs in all; peak "
+          f"device memory {peak:.3f} GiB\n  stages "
+          + _stages(timers))
+    return slist.emin, obs.dens, obs.docc, next(iter(slist)).sector.qn[1]
+
+
+def jz2_solve(device):
+    """Phase 12 (c): one whole EDSolver.solve at Nbath=2 in the Jz basis
+    and in plain N: egs, dens, docc, the diagonal G(iω_0) and Σ(iω_0)
+    against each other and the JAX package's."""
+    import numpy as np
+    import torch
+    from dmft_ed_tpu_torch.bath import pack_bath
+    from dmft_ed_tpu_torch.config import EDConfig
+    from dmft_ed_tpu_torch.solver import EDSolver
+    got, bad = {}, []
+    for label, jz in (("jz", True), ("plain", False)):
+        cfg = EDConfig(**dict(JZ_CFG, nbath=2, jz_basis=jz)).validate()
+        hloc, bath = jz_problem(cfg)
+        os.mkdir(f"jz2_{label}")
+        os.chdir(f"jz2_{label}")
+        solver = EDSolver(cfg, hloc, log=lambda m: None, device=device)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        r = solver.solve(pack_bath(bath))
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+        os.chdir("..")
+        o = r.observables
+        got[label] = (r.egs, o.dens, o.docc)
+        ref = JZ2_JAX
+        g0 = np.array([[r.gmats[s, s, a, a, 0].real,
+                        r.gmats[s, s, a, a, 0].imag]
+                       for s in range(2) for a in range(3)])
+        s0 = r.smats[..., 0].ravel()
+        d = dict(egs=abs(r.egs - ref["egs"]),
+                 dens=float(np.max(np.abs(o.dens - ref["dens"]))),
+                 docc=float(np.max(np.abs(o.docc - ref["docc"]))),
+                 g0=float(np.max(np.abs(g0 - np.asarray(ref["g0"])))),
+                 sigma0=float(np.max(np.abs(
+                     s0 - (np.asarray(ref["sigma0_re"])
+                           + 1j * np.asarray(ref["sigma0_im"]))))))
+        print(f"spin-orbit Nbath=2 {label} solve: {dt:.3f} s egs={r.egs!r} "
+              f"dens={o.dens.tolist()} docc={o.docc.tolist()} peak device "
+              f"memory {_peak_gib():.3f} GiB; against the JAX package's: "
+              + " ".join(f"|d {k}|={v:.3e}" for k, v in d.items())
+              + f" (bounds egs {TOL_JZ_EGS:g}, dens/docc {TOL_JZ_OBS:g}, "
+              f"G/Σ {TOL_JZ_GF:g})\n  stages " + _stages(solver.timers))
+        if not (d["egs"] <= TOL_JZ_EGS and d["dens"] <= TOL_JZ_OBS
+                and d["docc"] <= TOL_JZ_OBS and d["g0"] <= TOL_JZ_GF
+                and d["sigma0"] <= TOL_JZ_GF):
+            bad.append(f"the {label} solve disagrees with the JAX package")
+        if not all(np.all(np.isfinite(x)) for x in (r.gmats, r.smats,
+                                                      r.greal, r.sreal)):
+            bad.append(f"the {label} solve has non-finite G or Σ")
+    (ej, dj, oj), (ep, dp, op) = got["jz"], got["plain"]
+    d_egs = abs(ej - ep)
+    d_obs = float(max(np.max(np.abs(dj - dp)), np.max(np.abs(oj - op))))
+    print(f"spin-orbit Nbath=2 Jz vs plain N: |d egs|={d_egs:.3e} "
+          f"max|d dens|, |d docc|={d_obs:.3e}")
+    if not (d_egs <= TOL_JZ_EGS and d_obs <= TOL_JZ_OBS):
+        bad.append("Jz and plain N disagree")
+    if bad:
+        raise AssertionError("spin-orbit Nbath=2: " + "; ".join(bad))
+
+
+def spin_orbit_impurity(device):
+    """Phase 12: at Nbath=3, the sweeps of N = JZ_NGS - 1 .. JZ_NGS + 1,
+    (a) in the Jz basis and (b) in plain N sectors, each chosen through
+    ed_sectors from a sectors_list.restart, held to each other; (c)
+    jz2_solve. Returns the launches per kernel."""
+    from dmft_ed_tpu_torch.config import EDConfig
+    from dmft_ed_tpu_torch.kernels import KERNELS, reset_launches
+    from dmft_ed_tpu_torch.sectors import sector_table
+    import numpy as np
+    reset_launches()
+    cfg_a = EDConfig(**dict(JZ_CFG, nbath=3, jz_basis=True, ed_sectors=True,
+                            ed_sectors_shift=0)).validate()
+    with open("sectors_list.restart", "w") as fh:
+        for sec in sector_table(cfg_a).sectors:
+            if abs(sec.qn[1] - JZ_NGS) <= 1:
+                fh.write(f"{sec.qn[1]} {sec.qn[2]}\n")
+    egs_a, dens_a, docc_a, n_a = jz_sweep(device, cfg_a)
+    with open("sectors_list.restart", "w") as fh:
+        fh.write(f"{JZ_NGS}\n")
+    egs_b, dens_b, docc_b, n_b = jz_sweep(device, EDConfig(
+        **dict(JZ_CFG, nbath=3, ed_sectors=True)).validate())
+    os.remove("sectors_list.restart")
+    if not n_a == n_b == JZ_NGS:
+        raise AssertionError(f"spin-orbit Nbath=3: ground state at N = "
+                             f"{n_a} (Jz), {n_b} (plain), not {JZ_NGS}")
+    d_egs = abs(egs_a - egs_b)
+    d_obs = float(max(np.max(np.abs(dens_a - dens_b)),
+                      np.max(np.abs(docc_a - docc_b))))
+    print(f"spin-orbit Nbath=3 Jz vs plain N: |d egs|={d_egs:.3e} (bound "
+          f"{TOL_JZ_EGS:g}) max|d dens|, |d docc|={d_obs:.3e} (bound "
+          f"{TOL_JZ_OBS:g})")
+    if not (d_egs <= TOL_JZ_EGS and d_obs <= TOL_JZ_OBS):
+        raise AssertionError("spin-orbit Nbath=3: Jz and plain N disagree")
+    jz2_solve(device)
+    return {n: fn.launches for n, fn in KERNELS.items()}
+
+
+def nonsu2_phases(device, want, work):
+    """Phases 10-12, each in a directory of its own; returns the launches
+    per kernel of each (None for a phase not run)."""
+    import numpy as np
+    from dmft_ed_tpu_torch.aux import so2nn
+    from dmft_ed_tpu_torch.models import bhz_2d, soc
+    out = []
+    for p in (10, 11, 12):
+        if not want(p):
+            out.append(None)
+            continue
+        os.mkdir(f"phase{p}")
+        os.chdir(f"phase{p}")
+        t0 = time.time()
+        if p == 10:
+            hloc = soc.build_hk_soc(SOC_RUN["nk"])[1]
+            out.append(nonsu2_loop(device, soc, SOC_CFG, SOC_RUN, hloc,
+                                   SOC_JAX))
+        elif p == 11:
+            nk = BHZ_RUN.get("nk", 20)
+            hloc = so2nn(bhz_2d.build_hk_grid(nk, rh=BHZ_RUN["rh"])[1], 2, 2)
+            out.append(nonsu2_loop(device, bhz_2d, BHZ_CFG, BHZ_RUN, hloc,
+                                   BHZ_JAX))
+        else:
+            out.append(spin_orbit_impurity(device))
+        print(f"phase {p}: {time.time() - t0:.3f} s")
+        os.chdir(work)
+    return out
+
+
+def dev_phases(device, want, work):
+    """--phases: the listed phases of 10-12 only; no result line."""
+    nonsu2_phases(device, want, work)
+    print("chip_smoke: development run of some phases only; no result")
+    return 0
+
+
+def main() -> int:
+    import argparse
+    import torch
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--phases", default="all",
+                    help="comma-separated phases after phase 1, for "
+                    "development (prints no result line)")
+    only = ap.parse_args().phases
+    want = (lambda p: True) if only == "all" \
+        else (lambda p: str(p) in only.split(","))
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs one CUDA card", file=sys.stderr)
@@ -822,7 +1260,7 @@ def main() -> int:
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda}")
     tensor_core = build_kernels()
-    from dmft_ed_tpu_torch.models import ahm_bethe, hm_bethe
+    from dmft_ed_tpu_torch.models import ahm_bethe, bhz_2d, hm_bethe, soc
     if tensor_core["digit_matmul"] == 0:
         raise AssertionError("digit_matmul: no IGMMA/IMMA instruction in "
                              "the built library's SASS")
@@ -832,6 +1270,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as work:
         os.chdir(work)
         try:
+            if only != "all":
+                return dev_phases(device, want, work)
             # ---- phase 2: kernel vs plain at the main path's shapes
             cases = digit_matmul_cases(
                 device, kernel_cases(device, MAIN_CFG)
@@ -866,6 +1306,8 @@ def main() -> int:
             superc_solve(device)
             launches_o = superc_operator(device)
             os.chdir(work)
+            launches_soc, launches_bhz, launches_jz = nonsu2_phases(
+                device, want, work)
         finally:
             os.chdir(REPO)
 
@@ -891,7 +1333,10 @@ def main() -> int:
             "canonical_loop_native": launches_c["digit_matmul"],
             "arpack_solve_ozaki5x7": launches_a["digit_matmul"],
             "ahm_loop_native": launches_s["digit_matmul"],
-            "superc_operator_ozaki5x7": launches_o["digit_matmul"]},
+            "superc_operator_ozaki5x7": launches_o["digit_matmul"],
+            "soc_loop_native": launches_soc["digit_matmul"],
+            "bhz_loop_native": launches_bhz["digit_matmul"],
+            "spin_orbit_impurity_native": launches_jz["digit_matmul"]},
         "ms_per_class": {c["label"]: c["ms"] for c in cases
                          if "embedded" in c["label"]
                          or c["label"].startswith(("fused", "superc"))},

@@ -1,6 +1,6 @@
 """Closed-form bath functions Δ(z), FΔ(z), G0(z), F0(z), G0^{-1}(z) in
-PyTorch — port of dmft_ed_tpu/bath_fns.py for ed_mode "normal" and
-"superc".
+PyTorch — port of dmft_ed_tpu/bath_fns.py (ed_mode "normal", "superc" and
+"nonsu2"; bath types normal, hybrid and replica).
 
 Vectorized over (bath level × frequency); differentiable, so the chi^2 fit
 (fit.py) takes its gradients from torch.autograd instead of the reference's
@@ -11,8 +11,6 @@ Conventions:
   * returns [Nspin, Nspin, Norb, Norb, L] complex128
   * `axis` = "mats" | "real" switches the superc denominator
     (Im(x)^2 + e^2 + d^2 vs -x^2 + e^2 + d^2, delta_bath_{mats,real}_main).
-
-Not ported yet: the nonsu2 branches — they raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -35,13 +33,6 @@ def bath_params(bath: Bath, device) -> Dict[str, torch.Tensor]:
     return out
 
 
-def _require_ported(cfg: EDConfig):
-    if cfg.ed_mode == "nonsu2":
-        raise NotImplementedError(
-            "bath_fns: ed_mode='nonsu2' is not ported yet "
-            "(ROADMAP.md §1, nonsu2 item)")
-
-
 def _superc_den(x, e, d, axis):
     """den[..., k, L]: mats Im(x)^2 + e^2 + d^2, real -x^2 + e^2 + d^2."""
     ed2 = (e ** 2 + d ** 2)[..., None]
@@ -52,14 +43,25 @@ def _superc_den(x, e, d, axis):
 
 def delta(cfg: EDConfig, x, p, axis: str = "mats") -> torch.Tensor:
     """Hybridization Δ(x) [Nspin,Nspin,Norb,Norb,L]."""
-    _require_ported(cfg)
     ns_, no = cfg.nspin, cfg.norb
     L = x.shape[0]
     out = torch.zeros((ns_, ns_, no, no, L), dtype=torch.complex128,
                       device=x.device)
     ar = torch.arange(no, device=x.device)
     bt, sc = cfg.bath_type, cfg.ed_mode == "superc"
-    if bt == "normal":
+    if bt == "normal" and cfg.ed_mode == "nonsu2":
+        # helicity sum with the W matrix (get_Whyb_matrix): the helicity
+        # index h runs over the spin slot of e[h, a, k]
+        W = _whyb(cfg, p).to(x.dtype)                        # [s,h,a,k]
+        geh = 1.0 / (x[None, None, None, :] - p["e"][..., None])
+        d = torch.einsum("hakl,shak,zhak->szal", geh, W, W)
+        for a in range(no):
+            out[:, :, a, a] = d[:, :, a]
+    elif bt == "hybrid" and cfg.ed_mode == "nonsu2":
+        W = _whyb(cfg, p).to(x.dtype)                        # [s,h,a,k]
+        geh = 1.0 / (x[None, None, :] - p["e"][:, 0, :, None])  # [h,k,L]
+        out = torch.einsum("shak,zhbk,hkl->szabl", W, W, geh)
+    elif bt == "normal":
         if sc:
             # Δ_aa = -Σ_k V^2 (x + E) / Den
             den = _superc_den(x, p["e"], p["d"], axis)       # [s,a,k,L]
@@ -95,6 +97,20 @@ def delta(cfg: EDConfig, x, p, axis: str = "mats") -> torch.Tensor:
         d = torch.einsum("k,klij->lij", w2.to(inv.dtype), inv)
         out = d.reshape(L, ns_, no, ns_, no).permute(1, 3, 2, 4, 0)
     return out
+
+
+def _whyb(cfg: EDConfig, p):
+    """W^{s,h}_{a}(k) spin-helicity hybridization (get_Whyb_matrix,
+    ED_BATH/dmft_aux.f90:1098-1117): v on the diagonal, u on the spin
+    off-diagonal."""
+    ns_, no, nb = cfg.nspin, cfg.norb, cfg.nbath
+    v, u = p["v"], p["u"]
+    W = torch.zeros((ns_, ns_, no, nb), dtype=v.dtype, device=v.device)
+    for s in range(ns_):
+        W[s, s] = v[0] if cfg.ed_para else v[s]
+    W[0, ns_ - 1] = u[0]
+    W[ns_ - 1, 0] = u[0] if cfg.ed_para else u[ns_ - 1]
+    return W
 
 
 def fdelta(cfg: EDConfig, x, p, axis: str = "mats") -> torch.Tensor:
@@ -181,6 +197,12 @@ def g0and(cfg: EDConfig, x, p, hloc, axis: str = "mats") -> torch.Tensor:
         return _nambu_g0(cfg, x, p, hloc, axis, anomalous=False)
     ns_, no = cfg.nspin, cfg.norb
     ig = invg0(cfg, x, p, hloc, axis)
+    if cfg.ed_mode == "nonsu2":
+        # invert in the full (spin x orbital) space
+        L, nso = x.shape[0], ns_ * no
+        m = ig.permute(4, 0, 2, 1, 3).reshape(L, nso, nso)
+        return torch.linalg.inv(m).reshape(L, ns_, no, ns_, no).permute(
+            1, 3, 2, 4, 0)
     out = torch.zeros_like(ig)
     if cfg.bath_type == "normal":
         ar = torch.arange(no, device=x.device)

@@ -35,8 +35,17 @@ def config_from_reference(cfg) -> EDConfig:
     return EDConfig(**d).validate()
 
 
+def _need_mask(cfg: EDConfig, mask) -> None:
+    if cfg.bath_type == "replica" and mask is None:
+        raise ValueError("a replica bath's flat vector holds only its "
+                         "masked elements: pass mask=bath.replica_mask("
+                         "cfg, hloc), as EDSolver builds it")
+
+
 def read_bath_restart(cfg: EDConfig, path: str, mask=None) -> np.ndarray:
-    """Flat bath vector from a reference ``<hfile>.restart`` file."""
+    """Flat bath vector from a reference ``<hfile>.restart`` file (a replica
+    bath needs its fit mask)."""
+    _need_mask(cfg, mask)
     b = Bath(cfg)
     if mask is not None:
         b.mask = mask
@@ -47,4 +56,5 @@ def read_bath_restart(cfg: EDConfig, path: str, mask=None) -> np.ndarray:
 def write_bath_restart(cfg: EDConfig, flat: np.ndarray, path: str,
                        mask=None) -> None:
     """Write a flat bath vector as a reference-format restart file."""
+    _need_mask(cfg, mask)
     save_bath(unpack_bath(cfg, flat, mask), path=path)

@@ -1,5 +1,6 @@
-"""chi^2 bath fitting — PyTorch port of dmft_ed_tpu/fit.py (chi2_fitgf,
-ed_mode "normal" and "superc", bath types normal / hybrid).
+"""chi^2 bath fitting — PyTorch port of dmft_ed_tpu/fit.py (chi2_fitgf;
+ed_mode "normal", "superc" and "nonsu2"; bath types normal, hybrid and
+replica).
 
 The Anderson functions come from bath_fns (differentiable torch), so the
 gradients are torch.autograd instead of the reference's hand-coded analytic
@@ -10,8 +11,8 @@ the same jittered restart backstop. chi^2 = Σ_n |X(iw_n) - X_And(iw_n)|^2 /
 W_n over the first Lfit Matsubara points with the reference's cg_weight
 schemes; in superc the anomalous residual |F - F_And|^2 / W_n adds to it.
 
-Not ported yet: the replica-bath and nonsu2 fits and the joint multi-site
-fit (chi2_fitgf_sites).
+Not ported yet: the joint multi-site fit (chi2_fitgf_sites), which the
+inequivalent-site drivers run.
 """
 
 from __future__ import annotations
@@ -95,14 +96,13 @@ def _component_mask(cfg: EDConfig, ispin: Optional[int],
     return m
 
 
-def _fit_pack(cfg: EDConfig, b, ispin, iorb):
+def _fit_pack(cfg: EDConfig, b):
     """(x0, inject) where inject maps the flat fit vector back into the
     bath-params dict differentiably."""
-    if cfg.bath_type == "replica" or cfg.ed_mode == "nonsu2":
-        raise NotImplementedError(
-            "chi2_fitgf: only ed_mode 'normal' and 'superc' with bath_type "
-            "normal/hybrid are ported yet (ROADMAP.md §1)")
-    names = ["e", "d", "v"] if cfg.ed_mode == "superc" else ["e", "v"]
+    if cfg.bath_type == "replica":
+        return _fit_pack_replica(cfg, b)
+    names = {"superc": ["e", "d", "v"],
+             "nonsu2": ["e", "v", "u"]}.get(cfg.ed_mode, ["e", "v"])
     shapes = {n: np.asarray(getattr(b, n)).shape for n in names}
     sizes = {n: int(np.prod(shapes[n])) for n in names}
     x0 = np.concatenate([np.asarray(getattr(b, n)).ravel() for n in names])
@@ -115,6 +115,65 @@ def _fit_pack(cfg: EDConfig, b, ispin, iorb):
             off += sizes[n]
         return p
     return x0, inject
+
+
+def _fit_pack_replica(cfg: EDConfig, b):
+    """Replica bath: the masked Re/Im elements of the upper triangle of h
+    (in the combined spin-orbital index), one parameter per bath copy, then
+    the real vr: x = [re-elems x nbath][im-elems x nbath][vr x nbath], the
+    JAX package's fit layout (the user bath vector interleaves Re and Im
+    per copy; pack_bath / unpack_bath convert)."""
+    mask = b.mask
+    idx_re, idx_im = [], []
+    maxspin = 1 if (cfg.ed_para and cfg.ed_mode == "normal") else cfg.nspin
+    for s in range(maxspin):
+        for s2 in ([s] if cfg.ed_mode == "normal" else range(cfg.nspin)):
+            for a in range(cfg.norb):
+                for c in range(cfg.norb):
+                    if a + s * cfg.norb > c + s2 * cfg.norb:
+                        continue
+                    if mask[s, s2, a, c, 0]:
+                        idx_re.append((s, s2, a, c))
+                    if mask[s, s2, a, c, 1]:
+                        idx_im.append((s, s2, a, c))
+    nb = cfg.nbath
+    x0 = np.concatenate([b.h[e].real for e in idx_re]
+                        + [b.h[e].imag for e in idx_im] + [b.vr.real])
+    # one out-of-place scatter: flat position of each parameter in h
+    shape = (cfg.nspin, cfg.nspin, cfg.norb, cfg.norb, nb)
+    flat = [np.ravel_multi_index(e + (k,), shape)
+            for e in idx_re + idx_im for k in range(nb)]
+    nre = len(idx_re) * nb
+
+    def inject(xv):
+        pos = torch.as_tensor(np.asarray(flat, dtype=np.int64),
+                              device=xv.device)
+        re, im = xv[:nre], xv[nre:len(flat)]
+        vals = torch.cat([torch.complex(re, torch.zeros_like(re)),
+                          torch.complex(torch.zeros_like(im), im)])
+        h = torch.zeros(int(np.prod(shape)), dtype=torch.complex128,
+                        device=xv.device).index_add(0, pos, vals)
+        vr = xv[len(flat):len(flat) + nb]
+        return {"h": _herm_fill(cfg, h.reshape(shape)),
+                "vr": vr.to(torch.complex128)}
+    return x0, inject
+
+
+def _herm_fill(cfg: EDConfig, h):
+    """Fill the lower triangle of h (in combined spin-orbital space) from
+    the upper triangle by hermiticity, and mirror the spin copies for
+    ed_para; out of place, so autograd follows it."""
+    nso = cfg.nspin * cfg.norb
+    hso = h.permute(0, 2, 1, 3, 4).reshape(nso, nso, cfg.nbath)
+    low = torch.tril(torch.ones(nso, nso, dtype=torch.bool,
+                                device=h.device), -1)[..., None]
+    hso = torch.where(low, hso.transpose(0, 1).conj(), hso)
+    h = hso.reshape(cfg.nspin, cfg.norb, cfg.nspin, cfg.norb, cfg.nbath
+                    ).permute(0, 2, 1, 3, 4)
+    if cfg.ed_para and cfg.ed_mode == "normal" and cfg.nspin == 2:
+        h = torch.stack([torch.stack([h[0, 0], h[0, 1]]),
+                         torch.stack([h[1, 0], h[0, 0]])])
+    return h
 
 
 def _model(cfg: EDConfig, x, p, hloc, scheme):
@@ -182,7 +241,7 @@ def chi2_fitgf(cfg: EDConfig, fg, bath_flat: np.ndarray,
     tgt_an = torch.as_tensor(tan_np, device=device) \
         if tan_np is not None else None
 
-    x0, inject = _fit_pack(cfg, b, ispin, iorb)
+    x0, inject = _fit_pack(cfg, b)
     base_p = {k: torch.as_tensor(v, device=device) for k, v in
               {"e": b.e, "d": b.d, "v": b.v, "u": b.u, "h": b.h,
                "vr": b.vr}.items() if v is not None}
@@ -243,7 +302,7 @@ def chi2_fitgf(cfg: EDConfig, fg, bath_flat: np.ndarray,
             res = best
     p_fit = inject(torch.as_tensor(res.x, device=device))
     for name, val in p_fit.items():
-        setattr(b, name, val.cpu().numpy())
+        setattr(b, name, val.detach().cpu().numpy())
     if log:
         log(f"chi^2|iter{suffix}=  {res.fun:.9E} | {res.nit}")
     try:

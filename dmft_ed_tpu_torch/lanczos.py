@@ -86,10 +86,59 @@ def _lanczos_tridiag_impl(matvec, v0, niter: int):
     return alphas, betas_out, nsteps
 
 
+def _spec_kinds(spec) -> set:
+    """Every term kind of an operator spec (hamiltonian.make_matvec_op)."""
+    _, _, hup, hdw, mix, _ = spec
+    return {k[0] for k in hup + hdw} | {t[0] for m in mix
+                                       for t in (m[2], m[3]) if t}
+
+
+class _Graphed:
+    """A matvec replayed from one CUDA graph per input shape and dtype.
+
+    A multi-block sector's matvec is a chain of small launches, one to a
+    few per block and per mix entry (~1,700 at the Jz basis's 49 blocks
+    and 160 mix entries), and the host's cost of launching them one by
+    one is most of its time; a graph replays the chain in one host call,
+    with the same kernels on the same inputs. Captured on first use; the
+    input is copied into the graph's static buffer and the output cloned
+    out of it."""
+
+    def __init__(self, mv):
+        self.mv = mv
+        self.graphs = {}
+
+    def __call__(self, x):
+        key = (tuple(x.shape), x.dtype)
+        if key not in self.graphs:
+            x_in = x.clone()
+            side = torch.cuda.Stream(x.device)
+            side.wait_stream(torch.cuda.current_stream(x.device))
+            with torch.cuda.stream(side):
+                self.mv(x_in)            # warm-up before capture
+            torch.cuda.current_stream(x.device).wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                y_out = self.mv(x_in)
+            self.graphs[key] = (graph, x_in, y_out)
+        graph, x_in, y_out = self.graphs[key]
+        x_in.copy_(x)
+        graph.replay()
+        return y_out.clone()
+
+
 def _op_matvec(spec, blocks, arrays):
+    """The sector matvec on flat vectors. On a card, a multi-block
+    operator without Ozaki terms (superc, nonsu2) replays from a CUDA
+    graph (_Graphed): the same kernels, bitwise the same result. An
+    operator with Ozaki terms (whose kernel launches through ctypes)
+    stays eager. Leading batch axes of x pass through."""
     def mv(x):
         return flatten_blocks(apply_op(spec, arrays,
                                        unflatten_blocks(x, blocks)))
+    if len(blocks) > 1 and arrays and arrays[0].is_cuda \
+            and not _spec_kinds(spec) & {"ozl", "ozr", "ozf"}:
+        return _Graphed(mv)
     return mv
 
 
@@ -134,13 +183,11 @@ def lanczos_tridiag_op_stacked(spec, blocks, arrays_stacked, V0,
     channels each: arrays_stacked holds the spec's arrays with a leading
     operator axis [S, ...]; V0 [S, B, dim] -> (alphas [S, B, niter],
     betas [S, B, niter], nsteps [S, B])."""
-    S = V0.shape[0]
+    mvs = [_op_matvec(spec, blocks, tuple(a[s] for a in arrays_stacked))
+           for s in range(V0.shape[0])]
 
     def mv(x):                                        # x [S, B, dim]
-        return torch.stack([
-            flatten_blocks(apply_op(spec, tuple(a[s] for a in arrays_stacked),
-                                    unflatten_blocks(x[s], blocks)))
-            for s in range(S)])
+        return torch.stack([m(x[s]) for s, m in enumerate(mvs)])
 
     al, be, ns = _lanczos_tridiag_impl(mv, V0, niter)
     return al.permute(1, 2, 0), be.permute(1, 2, 0), ns

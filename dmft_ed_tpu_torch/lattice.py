@@ -1,12 +1,14 @@
-"""Lattice layer of the Bethe DMFT loops — main-path subset of
+"""Lattice layer of the single-site DMFT loops — subset of
 dmft_ed_tpu/lattice.py: the semicircular DOS, the DOS-integral local
-Green's function, the Weiss/Δ self-consistency, the kinetic energy (each
-also in its superc Nambu form) and the convergence monitor (DMFT_Tools'
+Green's function, the k-sum local Green's function, the Weiss/Δ
+self-consistency, the kinetic energy (each DOS form also in its superc
+Nambu form) and the convergence monitor (DMFT_Tools'
 dmft_gloc_matsubara/realaxis, dmft_self_consistency, dmft_kinetic_energy,
 check_convergence).
 
-O(Lmats x Le) complex work on the host in numpy, as the reference keeps it
-on its host backend.
+The O(Lmats x Le) DOS-integral work runs on the host in numpy, as the
+reference keeps it on its host backend; the k-sum (gloc_hk), a batched
+matrix inversion over frequencies x k-points, runs on the device.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from __future__ import annotations
 from typing import Optional
 
 import numpy as np
+import torch
 
 from .config import EDConfig
 from . import grids
@@ -56,6 +59,33 @@ def gloc_dos(cfg: EDConfig, ebands, dbands, h0, sigma, axis="mats"):
                                       - np.asarray(ebands[a])[None, :]),
                                    axis=1)
     return G
+
+
+def gloc_hk(cfg: EDConfig, hk, sigma, axis="mats", chunk=256,
+            device="cuda"):
+    """Gloc(z) = (1/Nk) Σ_k [(z+mu) - H(k) - Σ(z)]^{-1} over a k-grid.
+
+    hk: [Nso, Nso, Nk] complex. One batched inversion over [chunk, Nk, Nso,
+    Nso] per chunk of frequencies on `device` (torch.linalg.inv; the
+    reference leaves it to XLA, outside any Pallas kernel)."""
+    z = grids.z_mats(cfg) if axis == "mats" else grids.z_real(cfg)
+    ns_, no = cfg.nspin, cfg.norb
+    nso = ns_ * no
+    L = len(z)
+    hkT = torch.as_tensor(np.asarray(hk, dtype=complex),
+                          device=device).permute(2, 0, 1)   # [Nk, nso, nso]
+    sig = torch.as_tensor(np.asarray(sigma, dtype=complex), device=device
+                          ).permute(4, 0, 2, 1, 3).reshape(L, nso, nso)
+    zt = torch.as_tensor(z, device=device)
+    eye = torch.eye(nso, dtype=torch.complex128, device=device)
+    out = []
+    for i in range(0, L, chunk):
+        zeta = (zt[i:i + chunk] + cfg.xmu)[:, None, None] * eye \
+            - sig[i:i + chunk]
+        M = zeta[:, None, :, :] - hkT[None, :, :, :]    # [Lc, Nk, nso, nso]
+        out.append(torch.mean(torch.linalg.inv(M), dim=1))
+    g = torch.cat(out).cpu().numpy()
+    return g.reshape(L, ns_, no, ns_, no).transpose(1, 3, 2, 4, 0)
 
 
 def gloc_superc_dos(cfg: EDConfig, ebands, dbands, h0, sigma, sigma_an,

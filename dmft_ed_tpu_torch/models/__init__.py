@@ -2,4 +2,32 @@
 
   hm_bethe            single/multi-band Bethe-lattice Hubbard (canonical)
   ahm_bethe           attractive-U superconducting Bethe (ed_mode=superc)
+  soc                 t2g + atomic SOC on a cubic k-grid (nonsu2, replica)
+  bhz_2d              BHZ topological insulator on a square k-grid
+  bhz_3d              3D BHZ, the bhz_2d loop with its own Bloch builder
 """
+
+
+def split_device(argv):
+    """(device, argv without it): the drivers' ``DEVICE=cpu|cuda`` token
+    (default cuda)."""
+    device = "cuda"
+    rest = []
+    for tok in argv:
+        if tok.partition("=")[0].strip().upper() == "DEVICE":
+            device = tok.partition("=")[2].strip()
+        else:
+            rest.append(tok)
+    return device, rest
+
+
+def driver_args(argv, names):
+    """The driver-level KEY=value tokens (not EDConfig fields) named in
+    `names` {KEY: (kwarg, type)}."""
+    kw = {}
+    for tok in argv:
+        k, _, v = tok.partition("=")
+        k = k.strip().upper()
+        if k in names:
+            kw[names[k][0]] = names[k][1](v)
+    return kw

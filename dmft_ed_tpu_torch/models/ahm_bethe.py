@@ -14,6 +14,7 @@ from dataclasses import dataclass
 import numpy as np
 
 from ..config import EDConfig, read_input
+from . import split_device
 from ..solver import EDSolver
 from ..bath import ph_symmetrize_bath, enforce_normal_bath
 from ..lattice import (bethe_bands, gloc_superc_dos, self_consistency_superc,
@@ -103,12 +104,7 @@ def run(cfg: EDConfig | None = None, le: int = 500, wbethe=1.0,
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     path = argv[0] if argv and "=" not in argv[0] else "inputED.in"
-    device = "cuda"
-    for tok in argv:
-        if tok.partition("=")[0].strip().upper() == "DEVICE":
-            device = tok.partition("=")[2].strip()
-    argv = [t for t in argv
-            if t.partition("=")[0].strip().upper() != "DEVICE"]
+    device, argv = split_device(argv)
     cfg = read_input(path, argv, ed_mode="superc")
     r = run(cfg, device=device)
     print(f"converged={r.converged} iters={r.iterations} dens={r.dens} "

@@ -16,6 +16,7 @@ from dataclasses import dataclass
 import numpy as np
 
 from ..config import EDConfig, read_input
+from . import split_device
 from ..solver import EDSolver
 from ..bath import orb_equality_bath
 from ..lattice import (bethe_bands, gloc_dos, self_consistency,
@@ -135,12 +136,8 @@ def run(cfg: EDConfig | None = None, le: int = 500, wbethe=1.0, dbethe=0.0,
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     path = argv[0] if argv and "=" not in argv[0] else "inputED.in"
-    extras = {}
-    for tok in argv:
-        if tok.partition("=")[0].strip().upper() == "DEVICE":
-            extras["device"] = tok.partition("=")[2].strip()
-    argv = [t for t in argv
-            if t.partition("=")[0].strip().upper() != "DEVICE"]
+    device, argv = split_device(argv)
+    extras = {"device": device}
     cfg = read_input(path, argv)
     for tok in argv:
         if "=" not in tok:

@@ -21,10 +21,17 @@ _lib = None
 
 
 def _build() -> None:
+    # a temporary name of this process's own: concurrent first builds (one
+    # per pytest-xdist worker) must not write or rename each other's file
+    tmp = f"{_SO}.{os.getpid()}.tmp"
     cmd = ["g++", "-O3", "-march=native", "-shared", "-fPIC", _SRC,
-           "-o", _SO + ".tmp"]
-    subprocess.run(cmd, check=True, capture_output=True)
-    os.replace(_SO + ".tmp", _SO)
+           "-o", tmp]
+    try:
+        subprocess.run(cmd, check=True, capture_output=True)
+        os.replace(tmp, _SO)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
 
 
 def _load():

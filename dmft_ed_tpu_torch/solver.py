@@ -1,5 +1,5 @@
 """Solver orchestration: init + the fixed solve pipeline — PyTorch port of
-dmft_ed_tpu/solver.py (ed_mode "normal" and "superc"; no mesh).
+dmft_ed_tpu/solver.py (ed_mode "normal", "superc" and "nonsu2"; no mesh).
 
 Replaces ED_MAIN.f90: ``ed_init_solver`` (bath allocation/init/pack,
 :61-152) and ``ed_solve`` (set bath -> diagonalize -> Green's functions ->
@@ -48,6 +48,7 @@ class SolveResult:
     chi_dens: tuple = None
     chi_dens_mix: tuple = None
     chi_pair: tuple = None
+    bath_dm: np.ndarray = None    # replica-bath density matrix
 
 
 def _default_log(msg):
@@ -68,9 +69,6 @@ class EDSolver:
     def __init__(self, cfg: EDConfig, hloc: Optional[np.ndarray] = None,
                  suffix: str = "", log=None, device="cuda"):
         cfg.validate()
-        if cfg.ed_mode == "nonsu2":
-            raise NotImplementedError(
-                "ed_mode='nonsu2' is not ported yet (ROADMAP.md §1)")
         self.cfg = cfg
         self.device = resolve(device)
         self.suffix = suffix
@@ -132,15 +130,20 @@ class EDSolver:
                                        res.greal, res.fmats, res.freal,
                                        device=self.device)
         else:
-            from .gf_normal import build_gf_normal, build_sigma_normal
+            if cfg.ed_mode == "nonsu2":
+                from .gf_nonsu2 import (build_gf_nonsu2 as build_gf,
+                                        build_sigma_nonsu2 as build_sigma)
+            else:
+                from .gf_normal import (build_gf_normal as build_gf,
+                                        build_sigma_normal as build_sigma)
             with timers("gf_resolvents"):
-                res.gmats, res.greal = build_gf_normal(
+                res.gmats, res.greal = build_gf(
                     cfg, slist, zeta, bath, self.hloc, finite_t, self.log,
                     device=self.device)
             with timers("sigma_dyson"):
-                res.smats, res.sreal, res.g0mats, res.g0real = \
-                    build_sigma_normal(cfg, bath, self.hloc, res.gmats,
-                                       res.greal, device=self.device)
+                res.smats, res.sreal, res.g0mats, res.g0real = build_sigma(
+                    cfg, bath, self.hloc, res.gmats, res.greal,
+                    device=self.device)
         if cfg.chispin_flag or cfg.chidens_flag or cfg.chipair_flag:
             self._solve_chi(res, bath, slist, zeta, finite_t)
         with self.timers("observables"):
@@ -149,20 +152,22 @@ class EDSolver:
             res.energy = local_energy(cfg, slist, zeta, bath, self.hloc,
                                       finite_t)
         simp, zimp = quasiparticle_weight(cfg, res.smats)
+        so = cfg.ed_mode == "nonsu2"    # spin-offdiag components in files
         if cfg.ed_print_sigma:
             edio.print_function(cfg, "Sigma", res.smats, res.sreal,
-                                self.suffix)
+                                self.suffix, spin_offdiag=so)
             if res.smats_an is not None:
                 edio.print_function(cfg, "Self", res.smats_an, res.sreal_an,
                                     self.suffix)
         if cfg.ed_print_g:
-            edio.print_function(cfg, "G", res.gmats, res.greal, self.suffix)
+            edio.print_function(cfg, "G", res.gmats, res.greal, self.suffix,
+                                spin_offdiag=so)
             if res.fmats is not None:
                 edio.print_function(cfg, "F", res.fmats, res.freal,
                                     self.suffix)
         if cfg.ed_print_g0:
             edio.print_function(cfg, "G0", res.g0mats, res.g0real,
-                                self.suffix)
+                                self.suffix, spin_offdiag=so)
             if res.f0mats is not None:
                 edio.print_function(cfg, "F0", res.f0mats, res.f0real,
                                     self.suffix)
@@ -173,6 +178,14 @@ class EDSolver:
         if rho is not None:
             np.savetxt(f"imp_density_matrix{self.suffix}.ed",
                        np.column_stack([rho.real, rho.imag]), fmt="%18.12f")
+        if cfg.bath_type == "replica":
+            # bath density matrix, replica baths only
+            # (ED_OBSERVABLES.f90:591-658 computes bth_density_matrix under
+            # the same gate); one (s,s',a,b) row per bath copy
+            from .observables import bath_density_matrix
+            with self.timers("bath_dm"):
+                res.bath_dm = bath_density_matrix(cfg, slist, zeta, finite_t)
+            _write_bath_dm(cfg, res.bath_dm, self.suffix)
         if cfg.ed_verbose >= 2 and self.log:
             self.log(self.timers.report())
         if self.log:
@@ -221,6 +234,14 @@ class EDSolver:
                               device=self.device)
 
     # ------------------------------------------------------------------
+    def read_sigma(self):
+        """Re-ingest printed impSigma files (ed_read_impSigma restart path,
+        ED_IO/read_impSigma.f90). Returns (Smats, Sreal); nonsu2 restores
+        the spin-offdiagonal components too (:117-216)."""
+        return edio.read_function(self.cfg, "Sigma", self.suffix,
+                                  spin_offdiag=self.cfg.ed_mode == "nonsu2")
+
+    # ------------------------------------------------------------------
     # ed_get_* accessors (ED_IO.f90:274-327)
     def get_sigma_matsubara(self):
         return self.result.smats
@@ -248,3 +269,40 @@ class EDSolver:
 
     def get_phisc(self):
         return self.result.observables.phisc
+
+    def get_bath_density_matrix(self):
+        """[Nspin, Nspin, Norb, Norb, Nbath] replica-bath density matrix
+        (bth_density_matrix, ED_OBSERVABLES.f90:591-658); None unless
+        bath_type='replica'."""
+        return self.result.bath_dm
+
+    def get_quantum_soc_operators(self):
+        """<S>, <L>, <J>, <J^2>, <L.S> of the t2g impurity shell from the
+        density matrix, rotated to the {t2g, Sz} frame
+        (ed_get_quantum_SOC_operators, ED_IO/get_imp_SOC_op.f90); written to
+        J_imp<suffix>.ed."""
+        from .aux import quantum_soc_operators
+        ops = quantum_soc_operators(self.cfg,
+                                    self.result.observables.imp_density_matrix)
+        with open(f"J_imp{self.suffix}.ed", "w") as fh:
+            fh.write("# Jx Jy Jz Jx^2 Jy^2 Jz^2 L.S\n")
+            fh.write(" ".join(f"{v.real:18.12f}" for v in ops["J"])
+                     + " " + " ".join(f"{v.real:18.12f}" for v in ops["Jsq"])
+                     + f" {ops['LS'].real:18.12f}\n")
+        return ops
+
+
+def _write_bath_dm(cfg: EDConfig, bdm: np.ndarray, suffix: str) -> None:
+    """bath_density_matrix<suffix>.ed: one (ibath, s, s', a, b) row per
+    element, Re and Im."""
+    with open(f"bath_density_matrix{suffix}.ed", "w") as fh:
+        fh.write("# ibath ispin jspin iorb jorb Re Im\n")
+        for k in range(cfg.nbath):
+            for s in range(cfg.nspin):
+                for s2 in range(cfg.nspin):
+                    for a in range(cfg.norb):
+                        for b2 in range(cfg.norb):
+                            v = bdm[s, s2, a, b2, k]
+                            fh.write(f"{k + 1:4d} {s + 1:2d} {s2 + 1:2d} "
+                                     f"{a + 1:2d} {b2 + 1:2d} "
+                                     f"{v.real:18.12f} {v.imag:18.12f}\n")

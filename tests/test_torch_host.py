@@ -32,6 +32,7 @@ CONFIGS = [
     dict(norb=1, nbath=4, nspin=1, uloc=(2.0,)),
     dict(norb=2, nbath=2, nspin=1, uloc=(2.0, 1.5), ust=1.0, jh=0.25),
     dict(norb=1, nbath=3, nspin=2, uloc=(3.0,), xmu=0.3),
+    dict(norb=1, nbath=3, nspin=2, uloc=(3.0,), ed_mode="nonsu2"),
 ]
 
 
@@ -44,6 +45,9 @@ def _baths(kw, seed):
     tb = tbath.Bath(tconfig.EDConfig(**kw).validate())
     tb.e[:] = jb.e
     tb.v[:] = jb.v
+    if jb.u is not None:        # nonsu2: spin-flip hybridizations
+        jb.u[:] = rng.uniform(0.1, 0.3, jb.u.shape)
+        tb.u[:] = jb.u
     return jb, tb
 
 

@@ -120,12 +120,20 @@ def test_bath_functions_superc_vs_jax(bath_type):
 
 
 def test_bath_functions_nonsu2_still_raise():
+    """nonsu2 no longer raises (ported since; its parity with the JAX
+    package is tests/test_torch_nonsu2.py's): Δ of an initial nonsu2 bath
+    is finite and carries the spin off-diagonal from u."""
     cfg = tconfig.EDConfig(norb=1, nbath=2, nspin=2,
                            ed_mode="nonsu2").validate()
     b = tbath.Bath(cfg)
-    with pytest.raises(NotImplementedError):
-        tfns.delta(cfg, torch.ones(4, dtype=torch.complex128),
+    b.e[:] = [[[-0.5, 0.5]]] * 2
+    b.v[:] = 0.4
+    b.u[:] = 0.1
+    d = tfns.delta(cfg, 1j * torch.arange(1.0, 5.0, dtype=torch.float64),
                    tfns.bath_params(b, "cpu"))
+    assert d.shape == (2, 2, 1, 1, 4)
+    assert torch.all(torch.isfinite(d))
+    assert torch.max(torch.abs(d[0, 1])) > 0
 
 
 @pytest.mark.parametrize("prec", ["native", "ozaki5x7"])
@@ -334,14 +342,16 @@ def test_chi_pair_superc_vs_jax(tmp_path):
 
 
 def test_solver_refuses_only_nonsu2():
-    cfg = tconfig.EDConfig(norb=1, nbath=2, nspin=1,
-                           ed_mode="superc").validate()
-    s = tsolver.EDSolver(cfg, device="cpu")
-    assert s.cfg.ed_mode == "superc"
-    with pytest.raises(NotImplementedError):
-        tsolver.EDSolver(tconfig.EDConfig(norb=1, nbath=2, nspin=2,
-                                          ed_mode="nonsu2").validate(),
-                         device="cpu")
+    """The solver takes every ed_mode now (nonsu2 was refused until it
+    was ported); a device without a card still raises."""
+    for mode, nspin in (("superc", 1), ("nonsu2", 2)):
+        cfg = tconfig.EDConfig(norb=1, nbath=2, nspin=nspin,
+                               ed_mode=mode).validate()
+        s = tsolver.EDSolver(cfg, device="cpu")
+        assert s.cfg.ed_mode == mode
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError):
+            tsolver.EDSolver(cfg, device="cuda")
 
 
 @pytest.mark.gpu
