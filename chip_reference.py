@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """The JAX package's CPU values that ``chip_smoke.py`` holds phases 6, 8,
-9, 10, 11 and 12 to.
+9, 10, 11, 12 and 13 to.
 
 * ``--case bethe``: the canonical Hubbard loop of phase 6
   (``dmft_ed_tpu.models.hm_bethe.run`` with the package defaults: Norb=1,
@@ -31,6 +31,16 @@
   exhaust XLA:CPU's JIT memory (MemoryError); chip_smoke holds the
   port's Jz and plain solves both to these values, as
   tests/test_jz_basis.py holds the Jz basis to plain N.
+* ``--case flake``: ``dmft_ed_tpu.models.hm_square_lattice.run`` at the
+  driver's default geometry (a 4x4 flake, ts=0.25: 16 sites in 3
+  inequivalent classes) with Norb=1, Nbath=6, U=2, beta=100, Lmats=1024,
+  Lreal=256 and the package defaults, for ``--nloop`` iterations: dens,
+  docc and Σ(iω_0) per class, the DMFT error and ekin (phase 13(a);
+  about 5 minutes).
+* ``--case soc_ineq``: ``dmft_ed_tpu.models.soc_ineq.run`` with the
+  driver's defaults (nlat=2, nk=6; Norb=3, Nbath=1, nonsu2, a replica
+  bath, U=1) for ``--nloop`` iterations: dens per site and orbital,
+  |Σ_{↑↓}(iω)| per site and the DMFT error (phase 13(d)).
 
 The JAX package's nonsu2 G holds <<c_{b,s'}; c†_{a,s}>> at [s, s', a, b],
 the transpose of G0's convention (ROADMAP.md §3), which the port mends.
@@ -64,6 +74,14 @@ AHM_CFG = dict(norb=1, nbath=6, nspin=1, ed_mode="superc", uloc=(-2.0,),
                beta=1000.0, lmats=5000, lreal=5000, dmft_error=1e-5,
                nloop=40, ed_verbose=0)
 AHM_RUN = dict(le=500, wmixing=0.5)
+FLAKE_CFG = dict(norb=1, nbath=6, nspin=1, uloc=(2.0,), beta=100.0,
+                 lmats=1024, lreal=256, dmft_error=1e-12, ed_verbose=0)
+FLAKE_RUN = dict(lx=4, ly=4, ts=0.25)
+FLAKE_NLOOP = 3
+SOC_INEQ_CFG = dict(norb=3, nspin=2, nbath=1, uloc=(1.0, 1.0, 1.0),
+                    ed_mode="nonsu2", bath_type="replica", dmft_error=1e-12,
+                    ed_verbose=0)
+SOC_INEQ_NLOOP = 2
 NBATH9_CFG = dict(norb=1, nbath=9, nspin=1, ed_mode="superc", uloc=(-2.0,),
                   beta=100.0, lmats=1024, lreal=256, lanc_niter=256,
                   ed_verbose=0)
@@ -150,15 +168,25 @@ def jz_problem(bath_mod, cfg):
 
 
 def _mend_nonsu2_g():
-    """Transpose the JAX package's nonsu2 G back to G0's convention."""
+    """Transpose the JAX package's nonsu2 G back to G0's convention, on
+    the single-site path (build_gf_nonsu2) and on the lattice solver's
+    cross-site path (gf_nonsu2_plan's finalizer)."""
     import numpy as np
     from dmft_ed_tpu import gf_nonsu2
     orig = gf_nonsu2.build_gf_nonsu2
+    orig_plan = gf_nonsu2.gf_nonsu2_plan
 
     def mended(*a, **k):
         return tuple(np.ascontiguousarray(G.transpose(1, 0, 3, 2, 4))
                      for G in orig(*a, **k))
+
+    def mended_plan(*a, **k):
+        fin = orig_plan(*a, **k)
+        return lambda results: tuple(
+            np.ascontiguousarray(G.transpose(1, 0, 3, 2, 4))
+            for G in fin(results))
     gf_nonsu2.build_gf_nonsu2 = mended
+    gf_nonsu2.gf_nonsu2_plan = mended_plan
 
 
 def _loop_values(r) -> dict:
@@ -192,6 +220,47 @@ def run_bhz(nloop: int) -> dict:
     return dict(case="bhz", seconds=time.time() - t0, **_loop_values(r))
 
 
+def flake_values(r, lat2ineq) -> dict:
+    """Per-class values of a nano.run result (either package): dens and
+    docc of each class's first site, Σ(iω_0) of each class."""
+    import numpy as np
+    first = [int(np.nonzero(np.asarray(lat2ineq) == i)[0][0])
+             for i in range(len(r.smats_ineq))]
+    s0 = r.smats_ineq[:, 0, 0, 0, 0, 0]
+    return dict(iterations=int(r.iterations), error=float(r.error),
+                ekin=float(r.ekin), dens_lat=r.dens.tolist(),
+                dens=[float(r.dens[i]) for i in first],
+                docc=[float(r.docc[i]) for i in first],
+                sigma0_re=s0.real.tolist(), sigma0_im=s0.imag.tolist())
+
+
+def run_flake(nloop: int) -> dict:
+    from dmft_ed_tpu.config import EDConfig
+    from dmft_ed_tpu.models import hm_square_lattice
+    from dmft_ed_tpu.models.nano import square_flake_hij
+    lat2ineq = square_flake_hij(FLAKE_RUN["lx"], FLAKE_RUN["ly"])[1]
+    cfg = EDConfig(**dict(FLAKE_CFG, nloop=nloop)).validate()
+    t0 = time.time()
+    r = hm_square_lattice.run(cfg, log=lambda *a, **k: None, **FLAKE_RUN)
+    return dict(case="flake", seconds=time.time() - t0,
+                **flake_values(r, lat2ineq))
+
+
+def run_soc_ineq(nloop: int) -> dict:
+    import numpy as np
+    from dmft_ed_tpu.config import EDConfig
+    from dmft_ed_tpu.models import soc_ineq
+    _mend_nonsu2_g()
+    cfg = EDConfig(**dict(SOC_INEQ_CFG, nloop=nloop)).validate()
+    t0 = time.time()
+    r = soc_ineq.run(cfg, log=lambda *a, **k: None)
+    return dict(case="soc_ineq", seconds=time.time() - t0,
+                iterations=int(r.iterations), error=float(r.error),
+                dens=r.dens.tolist(),
+                smats_ud=[float(np.linalg.norm(r.smats_ineq[i, 0, 1]))
+                          for i in range(len(r.smats_ineq))])
+
+
 def run_jz2() -> dict:
     import numpy as np
     from dmft_ed_tpu import bath
@@ -216,10 +285,12 @@ def run_jz2() -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--case", choices=("bethe", "ahm", "nbath9", "soc", "bhz",
-                                       "jz2"), required=True)
+                                       "jz2", "flake", "soc_ineq"),
+                    required=True)
     ap.add_argument("--method", default="arpack")
     ap.add_argument("--nloop", type=int, default=None,
-                    help="iterations (bethe 5, soc 3, bhz 3)")
+                    help="iterations (bethe 5, soc 3, bhz 3, flake 3, "
+                    "soc_ineq 2)")
     args = ap.parse_args()
     import jax
     jax.config.update("jax_platforms", "cpu")
@@ -230,7 +301,10 @@ def main() -> int:
                "nbath9": lambda: run_nbath9(args.method),
                "soc": lambda: run_soc(args.nloop or SOC_NLOOP),
                "bhz": lambda: run_bhz(args.nloop or BHZ_NLOOP),
-               "jz2": run_jz2}[args.case]()
+               "jz2": run_jz2,
+               "flake": lambda: run_flake(args.nloop or FLAKE_NLOOP),
+               "soc_ineq": lambda: run_soc_ineq(
+                   args.nloop or SOC_INEQ_NLOOP)}[args.case]()
         os.chdir(REPO)
     print(json.dumps(out))
     return 0

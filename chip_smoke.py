@@ -63,7 +63,25 @@ when any is missing or any phase fails. Phases:
     held to each other and to the JAX package's CPU values. Nonsu2
     operators are complex, so phases 10-12 launch no digit matmul (no
     Ozaki digits for complex operators, in either package);
-5. printed last, after phases 6 to 12: a ``{"kernels": [...]}`` line, the
+13. inequivalent-site real-space DMFT on the driver's default flake
+    (``models.hm_square_lattice.run``: 4x4 sites, ts=0.25, 3 symmetry
+    classes -> ``nano.run`` -> ``LatticeEDSolver.solve`` with the
+    site-batched sweep, the cross-site GF and the joint fit), each part in
+    a directory of its own: (a) Norb=1, Nbath=6, U=2, beta=100,
+    Lmats=1024, Lreal=256, the package defaults, 3 iterations, held to
+    the JAX package's CPU run (``chip_reference.py --case flake``) and to
+    the flake's symmetry classes; (b) the same flake at full width,
+    Nbath=11 (sectors of 853,776 in 3-site stacks), one iteration, held to
+    half filling, with the seconds per stage, the matvecs and torch calls
+    of the largest sector and the peak memory; (c) one fixed-bath
+    ``LatticeEDSolver.solve`` of the Nbath=8 flake, batched against
+    per-site (native) and ozaki5x7 (over the sectors of each site's
+    native ground state, ``ed_sectors``) against native, the kernel launched
+    under ozaki5x7 (a sample of its calls held bitwise against the plain
+    version) and not under native; (d) ``models.soc_ineq.run`` with the
+    driver's defaults (2 sites, nonsu2, a replica bath), 2 iterations,
+    held to ``chip_reference.py --case soc_ineq``;
+5. printed last, after phases 6 to 13: a ``{"kernels": [...]}`` line, the
    card line, and as the last line ``{"ok": true, "device": {...}}``.
 
 Phases 10-12 print their seconds, the solver's stage timers, the matvecs
@@ -75,8 +93,8 @@ both sides and the largest pairing classes, 252 -> 210 and 210 -> 252, on
 both sides.
 
 Every path runs with the launch counts reset just before it and read just
-after it. ``--phases 10,12`` (for development) runs phase 1 and the
-listed phases only, and prints no result line.
+after it. ``--phases 10,12`` (for development; 10-13) runs phase 1 and
+the listed phases only, and prints no result line.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -267,6 +285,69 @@ TOL_JZ_EGS = 1e-9
 TOL_JZ_OBS = 1e-7
 # Nbath=2 against the JAX package: G_{aa}^{ss}(iω_0) and Σ(iω_0)
 TOL_JZ_GF = 1e-7
+
+# Phase 13: inequivalent-site real-space DMFT on the driver's default flake
+# (hm_square_lattice.run: a 4x4 square flake, ts=0.25, 16 sites in 3
+# symmetry classes, corners, edges and centre).
+FLAKE_RUN = dict(lx=4, ly=4, ts=0.25)
+# (a) the flake loop with the package defaults (arpack, native), cut to
+# FLAKE_NLOOP iterations and held to the JAX package's CPU run of the same
+# config and count (python3 chip_reference.py --case flake)
+FLAKE_NLOOP = 3
+FLAKE_CFG = dict(norb=1, nbath=6, nspin=1, uloc=(2.0,), beta=100.0,
+                 lmats=1024, lreal=256, dmft_error=1e-12, nloop=FLAKE_NLOOP,
+                 ed_verbose=0)
+FLAKE_JAX = dict(
+    error=0.009285346594791714, ekin=-0.1604497162192402,
+    dens=[0.999998239032014, 1.0000028975304627, 0.9999995206145957],
+    docc=[0.03994999570611506, 0.06073862438607683, 0.06971090292099488],
+    sigma0_re=[0.00039980842429277033, 6.2054782705631535e-06,
+               3.806888486381148e-05],
+    sigma0_im=[-0.8780550501801385, -0.3918592580422794,
+               -0.5502486487297837])
+# After the first joint fit the two packages' baths part in the fit's flat
+# valley (tests/test_torch_sites.py): the port's CPU run of this config
+# ends 6.6e-6 (dens), 1.4e-4 (docc), 1.1e-4 (ekin), 1.7e-3 (|Σ(iω_0)|,
+# relative) and 3.4e-7 (the DMFT error, which is about 9.3e-3) off the
+# JAX package's, its run on an H100 4.9e-6, 2.7e-4, 2.3e-4, 2.9e-3 and
+# 9.6e-5 (PERF.md). Held: dens 1e-3 and docc 2e-3 (the backend-parity
+# contract, PERF_NOTES.md), ekin 2e-3, Σ(iω_0) 1e-2 relative per class,
+# the error 1e-3.
+TOL_FLAKE_DENS = 1e-3
+TOL_FLAKE_DOCC = 2e-3
+TOL_FLAKE_EKIN = 2e-3
+TOL_FLAKE_SIGMA_REL = 1e-2
+TOL_FLAKE_ERROR = 1e-3
+# (b) full width: Nbath=11 (sectors of 853,776; 3-site stacks), the package
+# defaults (arpack, native), cut to one iteration. The first solve sees the
+# particle-hole symmetric initial bath: held to half filling per site and
+# 0 < docc < 1/4.
+FLAKE11_CFG = dict(FLAKE_CFG, nbath=11, lanc_ngfiter=200, nloop=1)
+TOL_FLAKE11_DENS = 1e-6
+# (c) one fixed-bath LatticeEDSolver.solve of the Nbath=8 flake on the
+# initial baths perturbed from a seed: batched against per-site (native)
+# and ozaki5x7 against native (phase 4's bounds, TOL_EGS and TOL_DOCC).
+# The whole ozaki5x7 sweep takes 287 s on an H100 (173,960 launches, host
+# bound, PERF.md), so the ozaki5x7 solve sweeps only the sectors of each
+# site's native ground state: ed_sectors reads the
+# sectors_list_ineq####.restart files the native solves wrote (the
+# reference's restart mechanism, per site)
+FLAKE8_CFG = dict(FLAKE_CFG, nbath=8, nloop=1)
+TOL_SITES_EGS = 1e-9
+TOL_SITES_G = 1e-8
+# (d) soc_ineq with the driver's defaults (nlat=2, nk=6; Norb=3, Nbath=1,
+# nonsu2, a replica bath), cut to SOC_INEQ_NLOOP iterations and held to
+# the JAX package's CPU values (python3 chip_reference.py --case
+# soc_ineq, its nonsu2 G transposed back) with phases 10-11's bounds
+SOC_INEQ_NLOOP = 2
+SOC_INEQ_CFG = dict(norb=3, nspin=2, nbath=1, uloc=(1.0, 1.0, 1.0),
+                    ed_mode="nonsu2", bath_type="replica",
+                    nloop=SOC_INEQ_NLOOP, dmft_error=1e-12, ed_verbose=0)
+SOC_INEQ_JAX = dict(
+    error=0.03312446839411293,
+    dens=[[1.0357931448649873, 1.035793144864996, 1.0357931448649929],
+          [1.0357931448649844, 1.035793144864995, 1.0357931448649798]],
+    smats_ud=[0.003435920565267747, 0.003435920565412501])
 
 
 def card_line() -> str:
@@ -961,8 +1042,9 @@ def matvec_calls(cfg, sec, bath, hloc, device):
 
     ham = build_sector_hamiltonian(cfg, sec, bath, hloc)
     spec, arrays, blocks = make_matvec_op(ham, cfg, device)
-    V = unflatten_blocks(torch.randn(sec.dim, dtype=torch.complex128,
-                                     device=device), blocks)
+    V = unflatten_blocks(torch.randn(
+        sec.dim, dtype=torch.complex128 if spec[-1].startswith("complex")
+        else torch.float64, device=device), blocks)
     apply_op(spec, arrays, V)
     with Count():
         apply_op(spec, arrays, V)
@@ -1198,6 +1280,291 @@ def spin_orbit_impurity(device):
     return {n: fn.launches for n, fn in KERNELS.items()}
 
 
+def _flake_values(r, lat2ineq):
+    """dens, docc of each class's first site and Σ(iω_0) per class
+    (chip_reference.flake_values)."""
+    import numpy as np
+    first = [int(np.nonzero(np.asarray(lat2ineq) == i)[0][0])
+             for i in range(len(r.smats_ineq))]
+    return (np.array([r.dens[i] for i in first]),
+            np.array([r.docc[i] for i in first]),
+            r.smats_ineq[:, 0, 0, 0, 0, 0])
+
+
+def flake_loop(device, cfg_kwargs, label):
+    """hm_square_lattice.run at the default geometry with `cfg_kwargs`:
+    seconds per iteration and per stage of the lattice solver, the
+    matvecs and torch calls per matvec of the largest sector, the peak
+    device memory and the kernel's launches. Returns (result, lat2ineq,
+    launches)."""
+    import numpy as np
+    import torch
+    from dmft_ed_tpu_torch.bath import unpack_bath
+    from dmft_ed_tpu_torch.config import EDConfig
+    from dmft_ed_tpu_torch.kernels import KERNELS, reset_launches
+    from dmft_ed_tpu_torch.models import hm_square_lattice
+    from dmft_ed_tpu_torch.models.nano import square_flake_hij
+    from dmft_ed_tpu_torch.sectors import sector_table
+    cfg = EDConfig(**cfg_kwargs).validate()
+    lat2ineq = square_flake_hij(FLAKE_RUN["lx"], FLAKE_RUN["ly"])[1]
+    marks = []
+
+    def log(msg):
+        if msg.startswith("--- real-space DMFT loop"):
+            torch.cuda.synchronize()
+            marks.append(time.time())
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.time()
+    with count_matvecs() as mv:
+        r = hm_square_lattice.run(cfg, log=log, device=device, **FLAKE_RUN)
+    torch.cuda.synchronize()
+    marks.append(time.time())
+    launches = {n: fn.launches for n, fn in KERNELS.items()}
+    peak = _peak_gib()
+    sec = max(sector_table(cfg).sectors, key=lambda x: x.dim)
+    calls, ms, _, _ = matvec_calls(cfg, sec, unpack_bath(cfg, r.baths[0]),
+                                   np.zeros((1, 1, 1, 1)), device)
+    iters = [round(marks[i + 1] - marks[i], 3) for i in range(len(marks) - 1)]
+    dens, docc, s0 = _flake_values(r, lat2ineq)
+    print(f"{label}: Nbath={cfg.nbath}, {r.solver.nineq} inequivalent of "
+          f"{len(lat2ineq)} sites, {r.iterations} iterations in "
+          f"{marks[-1] - t0:.3f} s (per iteration {iters})\n  stages "
+          + _stages(r.solver.timers)
+          + f"\n  largest sector dim {sec.dim}: {mv.get(sec.dim, 0)} matvecs "
+          f"(one per site and step), {calls} torch calls and {ms:.3f} ms "
+          f"per matvec; {sum(mv.values())} matvecs in all; peak device "
+          f"memory {peak:.3f} GiB; launches={launches}\n  dens per class "
+          f"{dens.tolist()} docc {docc.tolist()} Σ(iω_0) "
+          f"{[complex(x) for x in s0]} ekin={r.ekin!r} error={r.error!r}")
+    bad = [f"non-finite {f}" for f in ("smats_ineq", "gmats_lat", "baths",
+                                       "dens", "docc")
+           if not np.all(np.isfinite(getattr(r, f)))]
+    if not np.isfinite(r.ekin):
+        bad.append("non-finite ekin")
+    if r.iterations != cfg.nloop:
+        bad.append(f"{r.iterations} iterations, not {cfg.nloop}")
+    # the symmetry classes of the flake (tests/test_models.py): corners,
+    # edges and centre sites carry equal values
+    for cls in range(r.solver.nineq):
+        grp = np.nonzero(np.asarray(lat2ineq) == cls)[0]
+        if not (np.ptp(r.dens[grp]) <= 1e-12 and np.ptp(r.docc[grp])
+                <= 1e-12):
+            bad.append(f"class {cls} sites differ")
+    if not np.all((r.docc > 0.0) & (r.docc < 0.25)):
+        bad.append(f"docc {r.docc} outside (0, 1/4)")
+    if bad:
+        raise AssertionError(f"{label}: " + "; ".join(bad))
+    return r, lat2ineq, launches
+
+
+def check_flake(r, lat2ineq):
+    """Phase 13(a) against the JAX package's CPU run (FLAKE_JAX)."""
+    import numpy as np
+    dens, docc, s0 = _flake_values(r, lat2ineq)
+    ref = FLAKE_JAX
+    s0_ref = np.asarray(ref["sigma0_re"]) + 1j * np.asarray(ref["sigma0_im"])
+    d = dict(dens=float(np.max(np.abs(dens - ref["dens"]))),
+             docc=float(np.max(np.abs(docc - ref["docc"]))),
+             ekin=abs(r.ekin - ref["ekin"]),
+             sigma0=float(np.max(np.abs(s0 - s0_ref) / np.abs(s0_ref))),
+             error=abs(r.error - ref["error"]))
+    tol = dict(dens=TOL_FLAKE_DENS, docc=TOL_FLAKE_DOCC, ekin=TOL_FLAKE_EKIN,
+               sigma0=TOL_FLAKE_SIGMA_REL, error=TOL_FLAKE_ERROR)
+    print("flake loop against the JAX package's: "
+          + " ".join(f"|d {k}|={v:.3e} (bound {tol[k]:g})"
+                     for k, v in d.items()))
+    bad = [k for k in d if not d[k] <= tol[k]]
+    if bad:
+        raise AssertionError(f"flake loop disagrees with the JAX package: "
+                             f"{bad}")
+
+
+def check_flake11(r):
+    """Phase 13(b): half filling per site, 0 < docc < 1/4."""
+    import numpy as np
+    d = float(np.max(np.abs(r.dens - 1.0)))
+    print(f"flake Nbath=11: max|dens - 1|={d:.3e} (bound "
+          f"{TOL_FLAKE11_DENS:g}), docc {r.docc.tolist()}")
+    if not d <= TOL_FLAKE11_DENS:
+        raise AssertionError("flake Nbath=11: not half filling")
+
+
+@contextlib.contextmanager
+def held_kernel(samples: int = 2):
+    """While active, the first `samples` digit-matmul calls of every
+    operand shape the Ozaki products make are held bitwise against the
+    plain version on the same operands (on the card, after the kernel's
+    own launch, which counts as the path's); yields the list of
+    (shape, max|kernel - plain|)."""
+    import torch
+    from dmft_ed_tpu_torch import ozaki
+    from dmft_ed_tpu_torch.kernels import digit_matmul, digit_matmul_plain
+    seen, out = {}, []
+
+    def held(*a, **k):
+        got = digit_matmul(*a, **k)
+        key = (tuple(a[0].shape), tuple(a[1].shape), k.get("k"))
+        if seen.get(key, 0) < samples:
+            seen[key] = seen.get(key, 0) + 1
+            ref = digit_matmul_plain(*a, **k)
+            err = float((got - ref).abs().max())
+            out.append((key, err))
+            if not torch.equal(got, ref):
+                raise AssertionError(f"digit_matmul differs from its plain "
+                                     f"version at {key} by {err:.3e}")
+        return got
+    ozaki.digit_matmul = held
+    try:
+        yield out
+    finally:
+        ozaki.digit_matmul = digit_matmul
+
+
+def sites_fixed_bath(device):
+    """Phase 13(c): one fixed-bath LatticeEDSolver.solve of the Nbath=8
+    flake (its 3 classes, the initial baths perturbed from a seed):
+    batched=True against batched=False under native, and ozaki5x7 (over
+    the sectors of each site's native ground state) against native, with
+    the kernel's launches (and a sample of its calls held bitwise against
+    the plain version). Returns the ozaki5x7 solve's launches."""
+    import numpy as np
+    import torch
+    from dmft_ed_tpu_torch.aux import lso2nnn
+    from dmft_ed_tpu_torch.config import EDConfig
+    from dmft_ed_tpu_torch.kernels import KERNELS, reset_launches
+    from dmft_ed_tpu_torch.lattice_solver import LatticeEDSolver
+    from dmft_ed_tpu_torch.models.nano import square_flake_hij
+    hij, l2i = square_flake_hij(FLAKE_RUN["lx"], FLAKE_RUN["ly"],
+                                t=FLAKE_RUN["ts"])
+    i2l = [int(np.nonzero(l2i == i)[0][0]) for i in range(l2i.max() + 1)]
+    hloc = lso2nnn(hij, len(l2i), 1, 1)[i2l]
+    res, launches = {}, {}
+    baths = None
+    for label, prec, batched in (("batched native", "native", True),
+                                 ("per-site native", "native", False),
+                                 ("batched ozaki5x7", "ozaki5x7", True)):
+        extra = dict(ed_sectors=True, ed_sectors_shift=0) \
+            if prec != "native" else {}
+        cfg = EDConfig(**dict(FLAKE8_CFG, matmul_precision=prec,
+                              **extra)).validate()
+        ls = LatticeEDSolver(cfg, hloc, log=lambda m: None, device=device)
+        if baths is None:
+            baths = ls.init_solvers()
+            baths = baths + 0.02 * np.random.default_rng(13).normal(
+                size=baths.shape)
+        reset_launches()
+        t0 = time.time()
+        with held_kernel() as held:
+            rs = ls.solve(baths, batched=batched)
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+        launches[label] = {n: fn.launches for n, fn in KERNELS.items()}
+        res[label] = rs
+        stages = ls.timers if batched else ls.solvers[0].timers
+        print(f"flake Nbath=8 {label}: {dt:.3f} s egs="
+              f"{[r.egs for r in rs]} launches={launches[label]} "
+              f"kernel calls held bitwise: {len(held)}\n  stages "
+              + _stages(stages))
+    a, p, o = (res["batched native"], res["per-site native"],
+               res["batched ozaki5x7"])
+    d_egs = max(abs(x.egs - y.egs) for x, y in zip(a, p))
+    d_g = max(float(np.max(np.abs(x.gmats - y.gmats))) for x, y in zip(a, p))
+    d_oe = max(abs(x.egs - y.egs) for x, y in zip(a, o))
+    d_od = max(float(np.max(np.abs(x.observables.docc - y.observables.docc)))
+               for x, y in zip(a, o))
+    print(f"flake Nbath=8 batched vs per-site: max|d egs|={d_egs:.3e} "
+          f"(bound {TOL_SITES_EGS:g}) max|d G(iω)|={d_g:.3e} (bound "
+          f"{TOL_SITES_G:g}); ozaki5x7 vs native: max|d egs|={d_oe:.3e} "
+          f"(bound {TOL_EGS:g}) max|d docc|={d_od:.3e} (bound "
+          f"{TOL_DOCC:g})")
+    bad = []
+    if not (d_egs <= TOL_SITES_EGS and d_g <= TOL_SITES_G):
+        bad.append("batched and per-site solves disagree")
+    if not (d_oe <= TOL_EGS and d_od <= TOL_DOCC):
+        bad.append("ozaki5x7 and native disagree")
+    if not launches["batched ozaki5x7"]["digit_matmul"] > 0:
+        bad.append("the ozaki5x7 site-batched solve launched no kernel")
+    if launches["batched native"]["digit_matmul"] != 0:
+        bad.append("the native site-batched solve launched the kernel")
+    if bad:
+        raise AssertionError("flake Nbath=8: " + "; ".join(bad))
+    return launches["batched ozaki5x7"]
+
+
+def soc_ineq_loop(device):
+    """Phase 13(d): soc_ineq.run with the driver's defaults for
+    SOC_INEQ_NLOOP iterations, held to SOC_INEQ_JAX. Returns the
+    launches per kernel."""
+    import numpy as np
+    import torch
+    from dmft_ed_tpu_torch.config import EDConfig
+    from dmft_ed_tpu_torch.kernels import KERNELS, reset_launches
+    from dmft_ed_tpu_torch.models import soc_ineq
+    cfg = EDConfig(**SOC_INEQ_CFG).validate()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.time()
+    r = soc_ineq.run(cfg, log=lambda *a, **k: None, device=device)
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    launches = {n: fn.launches for n, fn in KERNELS.items()}
+    sud = np.array([np.linalg.norm(r.smats_ineq[i, 0, 1])
+                    for i in range(len(r.smats_ineq))])
+    ref = SOC_INEQ_JAX
+    d_dens = float(np.max(np.abs(r.dens - np.asarray(ref["dens"]))))
+    d_sud = float(np.max(np.abs(sud - ref["smats_ud"])
+                         / np.asarray(ref["smats_ud"])))
+    d_err = abs(r.error - ref["error"])
+    print(f"soc_ineq: {r.iterations} iterations in {dt:.3f} s, peak device "
+          f"memory {_peak_gib():.3f} GiB, launches={launches}\n  stages "
+          + _stages(r.solver.timers)
+          + f"\n  dens={r.dens.tolist()} |S_ud|={sud.tolist()} "
+          f"error={r.error!r}; against the JAX package's: max|d dens|="
+          f"{d_dens:.3e} (bound {TOL_LOOP_DENS:g}) |d S_ud|/|S_ud|="
+          f"{d_sud:.3e} (bound {TOL_LOOP_SIGMA_REL:g}) |d error|="
+          f"{d_err:.3e} (bound {TOL_LOOP_ERROR:g})")
+    bad = [f"non-finite {f}" for f in ("smats_ineq", "gmats_ineq", "baths",
+                                       "dens")
+           if not np.all(np.isfinite(getattr(r, f)))]
+    if r.iterations != cfg.nloop:
+        bad.append(f"{r.iterations} iterations, not {cfg.nloop}")
+    if not (d_dens <= TOL_LOOP_DENS and d_sud <= TOL_LOOP_SIGMA_REL
+            and d_err <= TOL_LOOP_ERROR):
+        bad.append("disagrees with the JAX package")
+    if bad:
+        raise AssertionError("soc_ineq loop: " + "; ".join(bad))
+    return launches
+
+
+def flake_phases(device, work):
+    """Phase 13 (a)-(d), each in a directory of its own (init_solvers
+    reads hamiltonian_ineq####.restart from the cwd, nano.run writes
+    magXY.ed). Returns the launches per kernel of each path."""
+    out = {}
+    t13 = time.time()
+    for part in ("a", "b", "c", "d"):
+        os.mkdir(f"phase13{part}")
+        os.chdir(f"phase13{part}")
+        t0 = time.time()
+        if part == "a":
+            r, l2i, out["flake_loop_native"] = flake_loop(
+                device, FLAKE_CFG, "flake loop")
+            check_flake(r, l2i)
+        elif part == "b":
+            r, _, out["flake_nbath11_native"] = flake_loop(
+                device, FLAKE11_CFG, "flake Nbath=11")
+            check_flake11(r)
+        elif part == "c":
+            out["flake_sites_ozaki5x7"] = sites_fixed_bath(device)
+        else:
+            out["soc_ineq_native"] = soc_ineq_loop(device)
+        print(f"phase 13({part}): {time.time() - t0:.3f} s")
+        os.chdir(work)
+    print(f"phase 13: {time.time() - t13:.3f} s")
+    return out
+
+
 def nonsu2_phases(device, want, work):
     """Phases 10-12, each in a directory of its own; returns the launches
     per kernel of each (None for a phase not run)."""
@@ -1229,8 +1596,10 @@ def nonsu2_phases(device, want, work):
 
 
 def dev_phases(device, want, work):
-    """--phases: the listed phases of 10-12 only; no result line."""
+    """--phases: the listed phases of 10-13 only; no result line."""
     nonsu2_phases(device, want, work)
+    if want(13):
+        flake_phases(device, work)
     print("chip_smoke: development run of some phases only; no result")
     return 0
 
@@ -1308,6 +1677,8 @@ def main() -> int:
             os.chdir(work)
             launches_soc, launches_bhz, launches_jz = nonsu2_phases(
                 device, want, work)
+            # ---- phase 13: inequivalent sites on the default flake
+            launches_13 = flake_phases(device, work)
         finally:
             os.chdir(REPO)
 
@@ -1336,7 +1707,8 @@ def main() -> int:
             "superc_operator_ozaki5x7": launches_o["digit_matmul"],
             "soc_loop_native": launches_soc["digit_matmul"],
             "bhz_loop_native": launches_bhz["digit_matmul"],
-            "spin_orbit_impurity_native": launches_jz["digit_matmul"]},
+            "spin_orbit_impurity_native": launches_jz["digit_matmul"],
+            **{k: v["digit_matmul"] for k, v in launches_13.items()}},
         "ms_per_class": {c["label"]: c["ms"] for c in cases
                          if "embedded" in c["label"]
                          or c["label"].startswith(("fused", "superc"))},

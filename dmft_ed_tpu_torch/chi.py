@@ -12,8 +12,9 @@ chain runs on the solver's device through gf_common.ResolventBatch, as the
 Green's functions do. The density channels (n_a ∓ i n_b) are complex
 vectors against a real operator: under ``ozaki*`` they go through the
 Ozaki products as their real and imaginary parts (hamiltonian._real_linear)
-— the JAX package's digits drop the imaginary part there. Cross-site
-batching (lattice_solver._batched_chi) is not ported (ROADMAP.md).
+— the JAX package's digits drop the imaginary part there. The probe
+channels of several inequivalent sites can share one batch (``site=``,
+lattice_solver._batched_chi).
 """
 
 from __future__ import annotations
@@ -89,8 +90,9 @@ class _BoseAccum:
 
 
 def chi_rows_plan(cfg: EDConfig, slist: StateList, rows, batch,
-                  kind: str = ""):
-    """Add probe channels to a ResolventBatch and return a finalizer.
+                  site: int = 0, kind: str = ""):
+    """Add probe channels of one site to a (possibly cross-site)
+    ResolventBatch and return a finalizer.
     rows: list of (row_index, builder) where builder(sector, vec) returns
     None or (target_sector, vector[, cnorm_multiplier[, isigns]]).
 
@@ -109,7 +111,7 @@ def chi_rows_plan(cfg: EDConfig, slist: StateList, rows, batch,
             isigns = r[3] if len(r) > 3 else (1, -1)
             batch.add(jsec, vv, e_i,
                       {"row": row, "isigns": isigns, "cnorm2": cnorm,
-                       "chi": kind})
+                       "site": site, "chi": kind}, site=site)
 
     def finalize(results):
         acc = _BoseAccum(cfg, nrow)
@@ -324,13 +326,14 @@ _CHI_KINDS = {"spin": _rows_spin, "dens": _rows_dens,
               "dens_mix": _rows_dens_mix, "pair": _rows_pair}
 
 
-def chi_plan(cfg: EDConfig, kind: str, slist, batch):
-    """Add one chi kind's probe channels to a ResolventBatch and return
-    the finalizer mapping its (meta, w, p) results to the chi tuple — the
-    χ analogue of gf_normal_plan (kinds 'spin', 'dens', 'dens_mix',
-    'pair')."""
+def chi_plan(cfg: EDConfig, kind: str, slist, batch, site: int = 0):
+    """Add one chi kind's probe channels for one site to a (possibly
+    cross-site) ResolventBatch (lattice_solver._batched_chi) and return
+    the finalizer mapping that site's (meta, w, p) results to the chi
+    tuple — the χ analogue of gf_normal_plan (kinds 'spin', 'dens',
+    'dens_mix', 'pair')."""
     rows, post = _CHI_KINDS[kind](cfg)
-    fin = chi_rows_plan(cfg, slist, rows, batch, kind=kind)
+    fin = chi_rows_plan(cfg, slist, rows, batch, site=site, kind=kind)
     return lambda results: post(*fin(results))
 
 

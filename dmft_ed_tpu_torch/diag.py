@@ -13,8 +13,11 @@ lockstep engine (sweep_plain.py); ``"arpack"`` sectors whose dims share a
 power-of-two class run as one stacked thick restart over zero-embedded
 operators (``_solve_deferred_ragged``).
 
-Not ported (see ROADMAP.md): the site-batched sweep and the mesh-sharded
-solve.
+Inequivalent sites: ``diagonalize_sites`` sweeps every site's sectors in
+one pass, one batched dense eigh per small sector and one stacked thick
+restart over the sites' operators per large one.
+
+Not ported (see ROADMAP.md): the mesh-sharded solve.
 """
 
 from __future__ import annotations
@@ -617,3 +620,186 @@ def write_state_list(cfg: EDConfig, slist: StateList, zeta: float,
         for s in slist:
             fh.write(" ".join(str(q) for q in s.sector.qn[1:]) + "\n")
 
+
+
+# ----------------------------------------------------------------------
+# site-batched sweep (real-space DMFT): one batched eigh per sector
+# ----------------------------------------------------------------------
+
+def diagonalize_sites(cfg: EDConfig, baths, hlocs, states=None, log=None,
+                      cfgs=None, mesh=None, suffixes=None, timers=None,
+                      device="cuda"):
+    """Batched sector sweep over N inequivalent impurity sites.
+
+    `cfgs`: optional per-site configs differing only in interaction /
+    level VALUES (e.g. the U stripe modulation of ed_ahm_stripe.f90) —
+    the sector structure must match `cfg`. Per sector the dense
+    Hamiltonians of every active site are stacked and diagonalized with ONE
+    batched eigh on `device`, replacing the reference's round-robin MPI
+    site loop (ED_MAIN.f90:576-678). Above lanc_dim_threshold the
+    structurally identical per-site operators stack into ONE lockstep
+    thick restart (lanczos.eigs_lanczos_op_stacked), whatever lanc_method
+    is; sectors whose operators differ in structure, or a single active
+    site, take the per-site _solve_sector_lanczos.
+
+    `suffixes`: per-site file suffixes for the sectors_list restart masks
+    (ed_pre_diag, ED_DIAG.f90:263-363); defaults to the lattice convention
+    ``_ineq####``. The ed_twin trimming of ED_DIAG.f90:71-101 and the
+    jz_max pruning apply as in the single-impurity sweep; the full
+    ed_post_diag (ED_DIAG.f90:445-566) runs per site.
+
+    Start vectors come from ONE numpy Generator (seed + 7) in sector order:
+    one [active sites, dim] draw per stacked sector (a second one for a
+    complex operator), one draw per site and sector on the per-site route.
+
+    `mesh` (the site-sharded form) is not ported and raises.
+
+    Returns (list of StateList, list of zeta, list of DiagState).
+    """
+    from contextlib import nullcontext
+    from .device import resolve
+    if mesh is not None:
+        raise NotImplementedError(
+            "diagonalize_sites(mesh=...): the site-sharded sweep waits for "
+            "parallel/ (ROADMAP.md §1 item 4)")
+    device = resolve(device)
+    tm = timers if timers is not None else (lambda name: nullcontext())
+    nsites = len(baths)
+    if cfgs is None:
+        cfgs = [cfg] * nsites
+    table = sector_table(cfg)
+    if states is None:
+        states = [None] * nsites
+    states = [s or DiagState(lanc_nstates_total=cfg.lanc_nstates_total)
+              for s in states]
+    for st in states:
+        if not st.neigen_sector:
+            for sec in table.sectors:
+                st.neigen_sector[sec.index] = min(sec.dim,
+                                                  cfg.lanc_nstates_sector)
+    if suffixes is None:
+        suffixes = [f"_ineq{i + 1:04d}" for i in range(nsites)]
+    smasks = [sectors_mask(cfgs[i], table, suffixes[i])
+              for i in range(nsites)]
+    tmask = table.twin_mask() if cfg.ed_twin else np.ones(len(table), bool)
+    finite_t = any(st.lanc_nstates_total > 1 for st in states)
+    slists = [StateList() for _ in range(nsites)]
+    oldzero = [1000.0] * nsites
+    rng = np.random.default_rng(cfg.seed + 7)
+    t0 = time.time()
+    for sec in table.sectors:
+        if sec.dim == 0 or not tmask[sec.index]:
+            continue
+        # Jz_max pruning (ED_DIAG.f90:73), as in the single-impurity sweep
+        if cfg.jz_basis and cfg.jz_max and \
+                abs(sec.qn[2]) > int(2 * cfg.jz_max_value):
+            continue
+        active = [smasks[i][sec.index] for i in range(nsites)]
+        if not any(active):
+            continue
+        tflag = cfg.ed_twin and tmask[sec.index] \
+            and not _is_self_twin(cfg, sec)
+        idx = [i for i in range(nsites) if active[i]]
+        neigen = [min(sec.dim, st.neigen_sector[sec.index]) for st in states]
+        dense_ok = sec.dim <= cfg.lanc_dim_threshold or \
+            max(neigen[i] for i in idx) >= sec.dim
+        if dense_ok:
+            with tm("diag.ham_build"):
+                Hs = np.stack([
+                    assemble_dense(build_sector_hamiltonian(
+                        cfgs[i], sec, baths[i], hlocs[i]))
+                    for i in idx])
+            with tm("diag.dense_eigh"):
+                evals_b, evecs_b = torch.linalg.eigh(
+                    torch.as_tensor(Hs, device=device))
+                evals_b = evals_b.cpu().numpy()
+            for bi, i in enumerate(idx):
+                ne = neigen[i]
+                evals = evals_b[bi][:ne]
+                evecs = evecs_b[bi][:, :ne].T.contiguous()
+                _append_eigenvalues(suffixes[i], sec, evals)
+                _collect(cfg, table, slists[i], sec, evals, evecs,
+                         finite_t, states[i], oldzero, i, twin=tflag)
+            continue
+        # large-sector site-batched Krylov: stack the structurally
+        # identical per-site operators and run ONE lockstep thick restart
+        # over the site axis
+        from .lanczos import eigs_lanczos_op_stacked
+        with tm("diag.ham_build"):
+            hams = {i: build_sector_hamiltonian(cfgs[i], sec, baths[i],
+                                                hlocs[i]) for i in idx}
+        with tm("diag.encode"):
+            ops = {i: make_matvec_op(hams[i], cfgs[i], device) for i in idx}
+        specs = {(o[0], o[2]) for o in ops.values()}
+        ne = max(neigen[i] for i in idx)
+        if len(specs) == 1 and len(idx) > 1:
+            spec, _, blocks = ops[idx[0]]
+            arrays_stacked = tuple(
+                torch.stack([ops[i][1][a] for i in idx])
+                for a in range(len(ops[idx[0]][1])))
+            del ops
+            cplx = spec[-1].startswith("complex")
+            v0 = rng.normal(size=(len(idx), sec.dim))
+            if cplx:
+                v0 = v0 + 1j * rng.normal(size=(len(idx), sec.dim))
+            v0 = torch.as_tensor(v0, dtype=torch.complex128 if cplx
+                                 else torch.float64, device=device)
+            ncv = _ncv(cfg, sec.dim, ne)
+            with tm("diag.thick_restart"):
+                evals_b, evecs_b, niter = eigs_lanczos_op_stacked(
+                    spec, blocks, arrays_stacked, v0, ne, ncv,
+                    maxiter=min(sec.dim, cfg.lanc_niter),
+                    tol=cfg.lanc_tolerance)
+            del arrays_stacked, v0
+            _log_restart(log, cfg, f"sector {sec.index} dim={sec.dim} "
+                         f"sites={len(idx)}", sec.dim, ne, ncv, niter)
+            for bi, i in enumerate(idx):
+                k = min(neigen[i], len(evecs_b[bi]))
+                evals = np.asarray(evals_b[bi][:k])
+                _append_eigenvalues(suffixes[i], sec, evals)
+                _collect(cfg, table, slists[i], sec, evals,
+                         evecs_b[bi][:k], finite_t, states[i], oldzero, i,
+                         twin=tflag)
+            del evecs_b
+        else:
+            del ops
+            for i in idx:
+                with tm("diag.krylov_serial"):
+                    evals, evecs = _solve_sector_lanczos(
+                        cfg, hams[i], neigen[i], rng, device, timers=timers,
+                        niter_mem=states[i].lanc_niter_sector, log=log)
+                _append_eigenvalues(suffixes[i], sec, evals)
+                _collect(cfg, table, slists[i], sec, evals, evecs,
+                         finite_t, states[i], oldzero, i, twin=tflag)
+        del hams
+    # per-site finite-T post-diag (Boltzmann trimming, neigen feedback,
+    # lanc_nstates_total tuning, histogram files) — the FULL ed_post_diag
+    # the reference runs per site (ED_DIAG.f90:445-566), shared with the
+    # single-impurity sweep
+    zetas = [_post_diag(cfg, table, slists[i], states[i], finite_t,
+                        suffixes[i], log) for i in range(nsites)]
+    if log and cfg.ed_verbose >= 2:
+        log(f"Site-batched diagonalization of {nsites} sites done in "
+            f"{time.time() - t0:.2f}s: Egs="
+            + " ".join(f"{s.emin:.12f}" for s in slists))
+    return slists, zetas, states
+
+
+def _collect(cfg, table, slist, sec, evals, evecs, finite_t, state,
+             oldzero, i, twin=False):
+    """Add one site's eigenpairs of a sector to its state list: the
+    capacity-bounded finite-T list, or the T=0 ground-state window with
+    the site's running `oldzero[i]`."""
+    if finite_t:
+        for e, v in zip(evals, evecs):
+            slist.add(e, v, sec, table, twin=twin,
+                      size=state.lanc_nstates_total)
+    else:
+        for e, v in zip(evals, evecs):
+            if e < oldzero[i] - 10 * cfg.gs_threshold:
+                oldzero[i] = e
+                slist.clear()
+                slist.add(e, v, sec, table, twin=twin)
+            elif abs(e - oldzero[i]) <= cfg.gs_threshold:
+                oldzero[i] = min(oldzero[i], e)
+                slist.add(e, v, sec, table, twin=twin)

@@ -11,8 +11,9 @@ the same jittered restart backstop. chi^2 = Σ_n |X(iw_n) - X_And(iw_n)|^2 /
 W_n over the first Lfit Matsubara points with the reference's cg_weight
 schemes; in superc the anomalous residual |F - F_And|^2 / W_n adds to it.
 
-Not ported yet: the joint multi-site fit (chi2_fitgf_sites), which the
-inequivalent-site drivers run.
+The inequivalent-site drivers fit every site's bath at once
+(chi2_fitgf_sites): one L-BFGS-B on the concatenated parameters, whose
+objective and gradient take one autograd pass over all sites.
 """
 
 from __future__ import annotations
@@ -208,6 +209,165 @@ def _delta_target_from_weiss(cfg: EDConfig, g0, x, hloc) -> np.ndarray:
         d = zmu[:, None, None] * np.eye(nso)[None] - hl[None] - ig
         out = d.reshape(L, cfg.nspin, cfg.norb, cfg.nspin, cfg.norb
                         ).transpose(1, 3, 2, 4, 0)
+    return out
+
+
+def chi2_fitgf_sites(cfg: EDConfig, fgs, baths_flat, hlocs,
+                     ispin: Optional[int] = None, iorb: Optional[int] = None,
+                     fgs_an=None, masks=None, cfgs=None, suffixes=None,
+                     log=None, save: bool = True,
+                     precondition: bool = True, mesh=None,
+                     device="cuda") -> np.ndarray:
+    """Joint bath fit over N inequivalent sites (the lattice fit stage,
+    ED_FIT_CHI2.f90 lattice variants).
+
+    The per-site chi^2 problems are block-separable, so ONE L-BFGS-B run on
+    the concatenated parameter vector reaches the same minima while every
+    objective/gradient evaluation serves ALL sites in one autograd pass on
+    `device` — iterations become max-over-sites instead of sum-over-sites
+    (the reference distributes sites over MPI ranks and fits serially per
+    rank, ED_FIT_CHI2.f90:187-225). A site whose joint fit clearly failed
+    (chi^2 above 1e-3 of its weighted target norm) falls back to the
+    single-site path with its jittered restarts.
+
+    fgs: [S, Nspin, Nspin, Norb, Norb, L]; baths_flat: [S, Nb]; the
+    sites' bath structures and replica masks must agree (ValueError
+    otherwise). `mesh` (the site-sharded form) is not ported and raises.
+    Returns the updated [S, Nb] bath stack; each site's bath is saved with
+    its suffix (``<hfile>_ineq####.restart`` by default)."""
+    from .device import resolve
+    if mesh is not None:
+        raise NotImplementedError(
+            "chi2_fitgf_sites(mesh=...): the site-sharded fit waits for "
+            "parallel/ (ROADMAP.md §1 item 4)")
+    device = resolve(device)
+    S = len(baths_flat)
+    cfgs = list(cfgs) if cfgs is not None else [cfg] * S
+    masks = list(masks) if masks is not None else [None] * S
+    suffixes = list(suffixes) if suffixes is not None \
+        else [f"_ineq{i + 1:04d}" for i in range(S)]
+    bs = [unpack_bath(cfgs[i], baths_flat[i], masks[i]) for i in range(S)]
+    ldelta = min(cfg.lfit, fgs.shape[-1])
+    xw = np.pi / cfg.beta * (2 * np.arange(1, ldelta + 1) - 1)
+    xnp = 1j * xw
+    x = torch.as_tensor(xnp, device=device)
+    Wnp = _weights(cfg, ldelta)
+    W = torch.as_tensor(Wnp, device=device)
+    cmask_np = _component_mask(cfg, ispin, iorb, bs[0].mask)
+    cmask = torch.as_tensor(cmask_np, device=device)
+    tgts_np = np.stack([np.asarray(fgs[i])[..., :ldelta] for i in range(S)])
+    tans_np = np.stack([np.asarray(fgs_an[i])[..., :ldelta]
+                        for i in range(S)]) if fgs_an is not None else None
+    tgts = torch.as_tensor(tgts_np, device=device)
+    tgts_an = torch.as_tensor(tans_np, device=device) \
+        if tans_np is not None else None
+
+    # one inject for all sites — requires identical bath structure and
+    # component mask across sites (the joint objective builds inject/cmask
+    # from site 0); verify rather than silently mis-fit
+    packs = [_fit_pack(cfg, bs[i]) for i in range(S)]
+    inject = packs[0][1]
+    n = packs[0][0].size
+    for i in range(1, S):
+        if packs[i][0].size != n:
+            raise ValueError(
+                f"chi2_fitgf_sites: site {i} bath pack size "
+                f"{packs[i][0].size} != site 0 size {n}; per-site bath "
+                "structures must match for the joint fit")
+        mi, m0 = bs[i].mask, bs[0].mask
+        if (mi is None) != (m0 is None) or \
+                (mi is not None and not np.array_equal(np.asarray(mi),
+                                                       np.asarray(m0))):
+            raise ValueError(
+                f"chi2_fitgf_sites: site {i} replica mask differs from "
+                "site 0; per-site masks must match for the joint fit")
+    x0 = np.concatenate([p[0] for p in packs])
+    base_ps = [{k: torch.as_tensor(v, device=device) for k, v in
+                {"e": b.e, "d": b.d, "v": b.v, "u": b.u, "h": b.h,
+                 "vr": b.vr}.items() if v is not None} for b in bs]
+    bnd = _param_bound(xw)
+
+    def site_chi2(scheme, xv, i, targets, targets_an):
+        p = dict(base_ps[i])
+        p.update(inject(xv))
+        G, F = _model(cfg, x, p, hlocs[i], scheme)
+        r = (G - targets[i]) * cmask[..., None]
+        c = torch.sum(torch.abs(r) ** 2 / W)
+        if F is not None and targets_an is not None:
+            ra = (F - targets_an[i]) * cmask[..., None]
+            c = c + torch.sum(torch.abs(ra) ** 2 / W)
+        return c + _box_penalty(xv, bnd)
+
+    def per_site(scheme, xmat, targets, targets_an):
+        return torch.stack([site_chi2(scheme, xmat[i], i, targets,
+                                      targets_an) for i in range(S)])
+
+    def make_joint(scheme, targets, targets_an):
+        def fun(xflat):
+            xmat = torch.tensor(np.asarray(xflat, dtype=np.float64
+                                           ).reshape(S, n),
+                                device=device, requires_grad=True)
+            c = torch.sum(per_site(scheme, xmat, targets, targets_an))
+            c.backward()
+            return float(c.detach()), xmat.grad.cpu().numpy().ravel()
+        return fun
+
+    opts = {"maxiter": cfg.cg_niter, "ftol": cfg.cg_ftol * 1e-3,
+            "gtol": 1e-12}
+    if precondition and cfg.cg_scheme == "weiss" \
+            and cfg.ed_mode != "superc":
+        # two-stage weiss fit (see chi2_fitgf): the Δ-target
+        # pre-conditioning pass, then the polish on the true weiss
+        # objective; cold starts only inside a DMFT loop
+        dts = np.stack([_delta_target_from_weiss(cfg, tgts_np[i], xnp,
+                                                 hlocs[i])
+                        for i in range(S)])
+        fun_d = make_joint("delta", torch.as_tensor(dts, device=device),
+                           None)
+        x0 = minimize(fun_d, x0, jac=True, method="L-BFGS-B",
+                      options=opts).x
+    fun = make_joint(cfg.cg_scheme, tgts, tgts_an)
+    res = minimize(fun, x0, jac=True, method="L-BFGS-B", options=opts)
+    xmat = res.x.reshape(S, n)
+    with torch.no_grad():
+        per = per_site(cfg.cg_scheme, torch.as_tensor(xmat, device=device),
+                       tgts, tgts_an).cpu().numpy()
+    # fallback threshold RELATIVE to the weighted target norm: at strong
+    # coupling / small baths the true minimum routinely exceeds any
+    # absolute cutoff, which would silently refit every site serially
+    cm = cmask_np[..., None]
+    tnorm = np.array([np.sum(np.abs(tgts_np[i] * cm) ** 2 / Wnp)
+                      for i in range(S)])
+    if tans_np is not None:
+        tnorm += np.array([np.sum(np.abs(tans_np[i] * cm) ** 2 / Wnp)
+                           for i in range(S)])
+    thresh = 1e-3 * np.maximum(tnorm, 1e-6)
+    out = np.empty_like(np.asarray(baths_flat))
+    for i in range(S):
+        if per[i] > thresh[i]:
+            # failed joint fit for this site: single-site backstop
+            out[i] = chi2_fitgf(cfgs[i], np.asarray(fgs[i]), baths_flat[i],
+                                hlocs[i], ispin=ispin, iorb=iorb,
+                                fg_an=None if fgs_an is None
+                                else np.asarray(fgs_an[i]),
+                                mask=masks[i], suffix=suffixes[i], log=log,
+                                save=save, precondition=precondition,
+                                device=device)
+            continue
+        b = bs[i]
+        p_fit = inject(torch.as_tensor(xmat[i], device=device))
+        for name, val in p_fit.items():
+            setattr(b, name, val.detach().cpu().numpy())
+        if log:
+            log(f"chi^2|iter{suffixes[i]}=  {per[i]:.9E} | {res.nit}")
+        try:
+            with open(f"chi2fit_results{suffixes[i]}.ed", "a") as fh:
+                fh.write(f"{per[i]:18.9E} {res.nit:5d}\n")
+        except OSError:
+            pass
+        if save:
+            save_bath(b, suffix=suffixes[i])
+        out[i] = pack_bath(b)
     return out
 
 

@@ -5,18 +5,21 @@ The Lanczos resolvent of an excitation vector yields (weights, poles); the
 spectral accumulation Σ_j w_j/(z - p_j) is one vectorized outer-product
 sum over all frequencies on the host (ED_GF_NORMAL.f90:580-632).
 
-Routes of ResolventBatch.run, in order: the wide-concat sweep engine
-(sweep_plain — every chain of mix-free single-block target sectors, when
-the device batches, except complex chains against real Ozaki operators);
-then, when the device batches, the ragged merge: groups whose flat dims
-share a power-of-two class zero-embed into one bucket shape and run as one
-stacked scan; then stacked scans of structurally identical operators. The
-mesh-sharded route is not ported (ROADMAP.md).
+One ResolventBatch serves one impurity or several inequivalent sites
+(``add_site``; jobs keyed by (site, sector)). Routes of ResolventBatch.run,
+in order: the wide-concat sweep engine, one per site (sweep_plain — every
+chain of mix-free single-block target sectors, when the device batches,
+except complex chains against real Ozaki operators); then, when the
+device batches, the ragged merge: groups whose flat dims share a
+power-of-two class zero-embed into one bucket shape and run as one stacked
+scan; then stacked scans of structurally identical operators, the same
+sector of several sites on the member axis. The mesh-sharded route is not
+ported (ROADMAP.md §1 item 4).
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -74,32 +77,49 @@ def state_iter(slist: StateList):
 
 
 class ResolventBatch:
-    """Collects excitation channels of one impurity and runs their Krylov
-    resolvents batched: the whole-sweep concat engine first, then stacked
-    scans of structurally identical target operators (channels of one
-    sector on a batch axis)."""
+    """Collects excitation channels and runs their Krylov resolvents
+    batched: the whole-sweep concat engine first (one per site), then the
+    ragged merge, then stacked scans of structurally identical target
+    operators — channels of one sector on a batch axis, and the same
+    sector of different inequivalent sites (or equal-shape sectors of one
+    impurity) on the operator axis (lanczos_tridiag_op_stacked).
 
-    def __init__(self, cfg: EDConfig, cache: HamCache, egs: float = 0.0,
-                 zeta: float = 1.0, finite_t: bool = False):
+    Single-impurity use: ResolventBatch(cfg, cache, egs, zeta, finite_t)
+    (site 0); multi-site use: ResolventBatch(cfg) + add_site(site, ...)
+    per site, with the site passed to ``add`` and carried in the channel
+    metas for routing."""
+
+    def __init__(self, cfg: EDConfig, cache: Optional[HamCache] = None,
+                 egs: float = 0.0, zeta: float = 1.0,
+                 finite_t: bool = False):
         self.cfg = cfg
-        self.cache = cache
-        self.egs, self.zeta, self.finite_t = egs, zeta, finite_t
-        self.jobs: Dict[int, list] = {}
-        self.jsecs: Dict[int, Sector] = {}
+        self.sites: Dict[int, tuple] = {}
+        if cache is not None:
+            self.add_site(0, cache, egs, zeta, finite_t)
+        self.jobs: Dict[tuple, list] = {}
+        self.jsecs: Dict[tuple, Sector] = {}
+
+    def add_site(self, site: int, cache: HamCache, egs: float, zeta: float,
+                 finite_t: bool) -> None:
+        self.sites[site] = (cache, egs, zeta, finite_t)
+
+    @property
+    def device(self):
+        return next(iter(self.sites.values()))[0].device
 
     def add(self, jsec: Sector, vvinit: np.ndarray, state_e: float,
-            meta) -> None:
+            meta, site: int = 0) -> None:
         norm2 = float(np.real(np.vdot(vvinit, vvinit)))
         if norm2 < 1e-300:
             return
-        key = jsec.index
+        key = (site, jsec.index)
         self.jsecs[key] = jsec
         self.jobs.setdefault(key, []).append(
             (vvinit / np.sqrt(norm2), norm2, state_e, meta))
 
-    def _weights_poles(self, joblist, al, be, ns):
+    def _weights_poles(self, site, joblist, al, be, ns):
         cfg = self.cfg
-        egs, zeta, finite_t = self.egs, self.zeta, self.finite_t
+        _, egs, zeta, finite_t = self.sites[site]
         for b, (v0, norm2, state_e, meta) in enumerate(joblist):
             n = max(int(ns[b]), 1)
             evals, Z = tridiag_eigh(al[b, :n], be[b, :n])
@@ -120,13 +140,17 @@ class ResolventBatch:
         """Yields (meta, weights, poles) per channel."""
         from .lanczos import lanczos_tridiag_op_stacked
         cfg = self.cfg
-        dev = self.cache.device
+        dev = self.device
+        # entry: (spec, blocks, arrays, nlanc, joblist, jsec, site, cache)
         entries = []
         for key, joblist in self.jobs.items():
+            site, _ = key
             jsec = self.jsecs[key]
-            spec, arrays, blocks = self.cache.op(jsec)
+            cache = self.sites[site][0]
+            spec, arrays, blocks = cache.op(jsec)
             nlanc = min(jsec.dim, cfg.lanc_ngfiter)
-            entries.append((spec, blocks, arrays, nlanc, joblist, jsec))
+            entries.append((spec, blocks, arrays, nlanc, joblist, jsec,
+                            site, cache))
         yield from self._run_sweep_concat(entries)    # consumes in place
         groups: Dict[tuple, list] = {}
         for e in entries:
@@ -138,8 +162,8 @@ class ResolventBatch:
         if ragged_batching(dev):
             # ragged merge: paddable groups whose flat dims share a
             # power-of-two class zero-embed into one bucket shape and run
-            # as ONE stacked scan (different-dimension sectors on the
-            # member axis)
+            # as ONE stacked scan (different-dimension sectors, of one
+            # site or several, on the member axis)
             buckets: Dict[tuple, list] = {}
             for gkey, ents in groups.items():
                 bkey = self._bucket_key(ents[0])
@@ -182,69 +206,78 @@ class ResolventBatch:
                 spec, blocks, arrays_stacked, V0, nlanc)
             al, be, ns = al.cpu().numpy(), be.cpu().numpy(), ns.cpu().numpy()
             for si, e in enumerate(ents):
-                yield from self._weights_poles(e[4], al[si], be[si], ns[si])
+                yield from self._weights_poles(e[6], e[4], al[si], be[si],
+                                               ns[si])
         self.jobs.clear()
         self.jsecs.clear()
 
     def _run_sweep_concat(self, entries):
         """Wide-concat GF backend (sweep_plain.py): all (sector, channel)
-        chains whose target sectors are mix-free single blocks run as ONE
-        lockstep loop whose matvec shares the per-(spin, n) operators
-        across sectors. Consumed entries are removed from `entries`; the
-        rest flow to the stacked route."""
+        chains of one site whose target sectors are mix-free single blocks
+        run as ONE lockstep loop whose matvec shares the per-(spin, n)
+        operators across sectors. Consumed entries are removed from
+        `entries`; the rest flow to the ragged and stacked routes."""
         from .device import ragged_batching
         from .sweep_plain import (sweep_supported, make_sweep_op,
                                   sweep_tridiag)
-        cfg = self.cfg
-        dev = self.cache.device
-        if not entries:
-            return
-        hams = [self.cache.ham(e[5]) for e in entries]
-        nchains = sum(len(e[4]) for e in entries)
-        hams_cplx = any(np.issubdtype(h.dtype, np.complexfloating)
-                        for h in hams)
-        chain_cplx = any(np.iscomplexobj(j[0])
-                         for e in entries for j in e[4])
-        cplx = hams_cplx or chain_cplx
-        if nchains < 2 or not sweep_supported(cfg, hams) \
-                or not ragged_batching(dev):
-            return
-        if chain_cplx and not hams_cplx \
-                and cfg.matmul_precision.startswith("ozaki"):
-            # complex chain vectors against real ozaki-encoded operators:
-            # digit slicing is real-only — leave these to the stacked path
-            return
-        members = []    # (entry, job), flattened (sector x channel)
-        mhams = []
-        for e, h in zip(entries, hams):
-            for j in e[4]:
-                members.append((e, j))
-                mhams.append(h)
-        spec, arrays = make_sweep_op(cfg, mhams, dev)
-        dt = np.complex128 if cplx else np.float64
-        V0 = tuple(torch.as_tensor(np.asarray(j[0], dtype=dt).reshape(
-            e[5].blocks[0].ddw, e[5].blocks[0].dup), device=dev)
-            for e, j in members)
-        nlanc = max(e[3] for e in entries)
-        al, be, ns = sweep_tridiag(spec, arrays, nlanc, V0)
-        al = al.cpu().numpy()                           # [nlanc, S]
-        be = be.cpu().numpy()
-        ns = ns.cpu().numpy()
-        for s, (e, j) in enumerate(members):
-            # clamp to the member's own chain length (prefix-stable
-            # Lanczos coefficients)
-            n_s = min(int(ns[s]), e[3])
-            yield from self._weights_poles([j], al[:, s][None, :],
-                                           be[:, s][None, :], [n_s])
-        entries.clear()
+        consumed = set()
+        by_site: Dict[int, list] = {}
+        for i, e in enumerate(entries):
+            by_site.setdefault(e[6], []).append((i, e))
+        for site, idx_ents in by_site.items():
+            ents = [e for _, e in idx_ents]
+            cache = self.sites[site][0]
+            cfg = cache.cfg
+            dev = cache.device
+            hams = [e[7].ham(e[5]) for e in ents]
+            nchains = sum(len(e[4]) for e in ents)
+            hams_cplx = any(np.issubdtype(h.dtype, np.complexfloating)
+                            for h in hams)
+            chain_cplx = any(np.iscomplexobj(j[0])
+                             for e in ents for j in e[4])
+            cplx = hams_cplx or chain_cplx
+            if nchains < 2 or not sweep_supported(cfg, hams) \
+                    or not ragged_batching(dev):
+                continue
+            if chain_cplx and not hams_cplx \
+                    and cfg.matmul_precision.startswith("ozaki"):
+                # complex chain vectors against real ozaki-encoded
+                # operators: digit slicing is real-only — leave these to
+                # the stacked path
+                continue
+            members = []    # (entry, job), flattened (sector x channel)
+            mhams = []
+            for e, h in zip(ents, hams):
+                for j in e[4]:
+                    members.append((e, j))
+                    mhams.append(h)
+            spec, arrays = make_sweep_op(cfg, mhams, dev)
+            dt = np.complex128 if cplx else np.float64
+            V0 = tuple(torch.as_tensor(np.asarray(j[0], dtype=dt).reshape(
+                e[5].blocks[0].ddw, e[5].blocks[0].dup), device=dev)
+                for e, j in members)
+            nlanc = max(e[3] for e in ents)
+            al, be, ns = sweep_tridiag(spec, arrays, nlanc, V0)
+            al = al.cpu().numpy()                       # [nlanc, S]
+            be = be.cpu().numpy()
+            ns = ns.cpu().numpy()
+            for s, (e, j) in enumerate(members):
+                # clamp to the member's own chain length (prefix-stable
+                # Lanczos coefficients)
+                n_s = min(int(ns[s]), e[3])
+                yield from self._weights_poles(
+                    e[6], [j], al[:, s][None, :], be[:, s][None, :], [n_s])
+            consumed.update(i for i, _ in idx_ents)
+        for i in sorted(consumed, reverse=True):
+            del entries[i]
 
     def _bucket_key(self, e):
         """Ragged-merge bucket of a paddable entry (single block, no mix
-        terms), or None — the reference's grouping key."""
-        blocks, spec = e[1], e[0]
+        terms), or None — the reference's grouping key, with the cfg
+        fields of the entry's own site."""
+        spec, blocks, cfg = e[0], e[1], e[7].cfg
         if len(blocks) != 1 or spec[4]:
             return None
-        cfg = self.cfg
         dim = blocks[0][0] * blocks[0][1]
         p2 = 1 << (max(dim, 1) - 1).bit_length()
         return (spec[5], str(cfg.dtype), cfg.matmul_precision,
@@ -258,16 +291,16 @@ class ResolventBatch:
         chain never leaves the embedded subspace and its coefficients are
         the unpadded recurrence's. Members sub-group by their padded spec
         (a spec can still differ, e.g. when only some members carry
-        nonzeros of a COO kind), each sub-group its own stack."""
+        nonzeros of a COO kind, or per-site cfgs encode differently), each
+        sub-group its own stack."""
         from .hamiltonian import make_padded_matvec_op
-        hams = [self.cache.ham(e[5]) for e in ents]
+        hams = [e[7].ham(e[5]) for e in ents]
         nnz_up = max(h.hup[0].rows.size for h in hams)
         nnz_dw = max(h.hdw[0].rows.size for h in hams)
         subgroups: Dict[tuple, list] = {}
         for e, h in zip(ents, hams):
-            sp, ar, bl = make_padded_matvec_op(h, self.cfg, ddw_pad, dup_pad,
-                                               nnz_up, nnz_dw,
-                                               self.cache.device)
+            sp, ar, bl = make_padded_matvec_op(h, e[7].cfg, ddw_pad, dup_pad,
+                                               nnz_up, nnz_dw, e[7].device)
             subgroups.setdefault((sp, bl), []).append((e, ar))
         for (sp, bl), sub in subgroups.items():
             yield from self._run_ragged_stack(sp, bl, sub, ddw_pad, dup_pad)
@@ -293,12 +326,12 @@ class ResolventBatch:
                                for i in range(len(ops[0])))
         al, be, ns = lanczos_tridiag_op_stacked(
             spec_p, blocks_p, arrays_stacked,
-            torch.as_tensor(V0, device=self.cache.device), nlanc)
+            torch.as_tensor(V0, device=self.device), nlanc)
         al, be, ns = al.cpu().numpy(), be.cpu().numpy(), ns.cpu().numpy()
         for si, e in enumerate(ents):
             # clamp to the member's OWN chain length: the first k Lanczos
             # coefficients do not depend on later steps, so this reproduces
             # the per-sector run (the shared longer scan would otherwise add
             # spurious duplicate Ritz values)
-            yield from self._weights_poles(e[4], al[si], be[si],
+            yield from self._weights_poles(e[6], e[4], al[si], be[si],
                                            np.minimum(ns[si], e[3]))

@@ -77,7 +77,7 @@ def gf_nonsu2_plan(cfg: EDConfig, slist: StateList, bath: Bath,
         jsec, vv = r
         batch.add(jsec, vv, e_i,
                   {"isign": isign, "target": target, "cnorm2": cnorm2,
-                   "site": site})
+                   "site": site}, site=site)
 
     # spin-diagonal, orbital-diagonal channels
     for s in range(cfg.nspin):

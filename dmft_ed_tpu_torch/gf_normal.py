@@ -42,9 +42,11 @@ def build_gf_normal(cfg: EDConfig, slist: StateList, zeta: float,
 
 
 def gf_normal_plan(cfg: EDConfig, slist: StateList, bath: Bath,
-                   batch, log=None):
-    """Enqueue every normal-mode GF channel into `batch` and return
-    finalize(results) -> (Gmats, Greal)."""
+                   batch, site: int = 0, log=None):
+    """Enqueue every normal-mode GF channel of one impurity into `batch`
+    (tagged with `site`, so that one batch serves several inequivalent
+    sites) and return finalize(results) -> (Gmats, Greal), where results
+    iterates this site's (meta, weights, poles)."""
     table = sector_table(cfg)
     zm, zr = grids.z_mats(cfg), grids.z_real(cfg)
     Gm, Gr = _gf_shape(cfg, cfg.lmats), _gf_shape(cfg, cfg.lreal)
@@ -55,7 +57,8 @@ def gf_normal_plan(cfg: EDConfig, slist: StateList, bath: Bath,
             return
         jsec, vv = r
         batch.add(jsec, vv, e_i,
-                  {"isign": isign, "target": target, "cnorm2": cnorm2})
+                  {"isign": isign, "target": target, "cnorm2": cnorm2,
+                   "site": site}, site=site)
 
     # --- diagonal G_aa channels (lanc_build_gf_normal_c)
     for ispin in range(cfg.nspin):

@@ -40,9 +40,11 @@ def build_gf_superc(cfg: EDConfig, slist: StateList, zeta: float,
     return finalize(batch.run())
 
 
-def gf_superc_plan(cfg: EDConfig, slist: StateList, batch, log=None):
-    """Enqueue the 3-auxiliary-channel superc GF build into `batch` and
-    return finalize(results) -> (Gmats, Greal, Fmats, Freal)."""
+def gf_superc_plan(cfg: EDConfig, slist: StateList, batch, site: int = 0,
+                   log=None):
+    """Enqueue the 3-auxiliary-channel superc GF build of one impurity
+    into `batch` (tagged with `site`) and return finalize(results) ->
+    (Gmats, Greal, Fmats, Freal)."""
     table = sector_table(cfg)
     zm, zr = grids.z_mats(cfg), grids.z_real(cfg)
     shape_m = (cfg.nspin, cfg.nspin, cfg.norb, cfg.norb, cfg.lmats)
@@ -63,7 +65,8 @@ def gf_superc_plan(cfg: EDConfig, slist: StateList, batch, log=None):
             return
         jsec, vv = r
         batch.add(jsec, vv, e_i,
-                  {"isign": isign, "target": target, "cnorm2": cnorm2})
+                  {"isign": isign, "target": target, "cnorm2": cnorm2,
+                   "site": site}, site=site)
 
     for a in range(cfg.norb):
         if log:

@@ -333,7 +333,7 @@ def eigs_lanczos_op_stacked(spec, blocks, arrays_stacked, V0, neigen: int,
     if mesh is not None:
         raise NotImplementedError(
             "eigs_lanczos_op_stacked(mesh=...): the site-sharded restart "
-            "waits for parallel/ (ROADMAP.md §1 item 15)")
+            "waits for parallel/ (ROADMAP.md §1 item 4)")
     S, dim = V0.shape
     k, ncv, restarts = _sizes(dim, neigen, ncv, maxiter)
     V = torch.zeros((S, ncv + 1, dim), dtype=V0.dtype, device=V0.device)

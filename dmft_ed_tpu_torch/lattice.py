@@ -1,14 +1,17 @@
-"""Lattice layer of the single-site DMFT loops — subset of
-dmft_ed_tpu/lattice.py: the semicircular DOS, the DOS-integral local
-Green's function, the k-sum local Green's function, the Weiss/Δ
-self-consistency, the kinetic energy (each DOS form also in its superc
-Nambu form) and the convergence monitor (DMFT_Tools'
+"""Lattice layer of the DMFT loops — subset of dmft_ed_tpu/lattice.py:
+the semicircular DOS, the DOS-integral local Green's function, the k-sum
+local Green's function, the Weiss/Δ self-consistency, the kinetic energy
+(each DOS form also in its superc Nambu form), the real-space and
+site-resolved functions of the inequivalent-site drivers (gloc_realspace,
+its full, superc and k-resolved forms, transport, the effective exchange,
+kinetic_energy_realspace) and the convergence monitor (DMFT_Tools'
 dmft_gloc_matsubara/realaxis, dmft_self_consistency, dmft_kinetic_energy,
 check_convergence).
 
-The O(Lmats x Le) DOS-integral work runs on the host in numpy, as the
-reference keeps it on its host backend; the k-sum (gloc_hk), a batched
-matrix inversion over frequencies x k-points, runs on the device.
+The O(Lmats x Le) DOS-integral work and the kinetic energies run on the
+host in numpy, as the reference keeps them on its host backend; the
+k-sums and the real-space inversions, batched complex128 matrix inverses
+over chunks of frequencies (x k-points), run on the device.
 """
 
 from __future__ import annotations
@@ -287,6 +290,314 @@ def kinetic_energy_superc(cfg: EDConfig, ebands, dbands, h0, sigma,
             tail1 = 2 * np.sum(0.25 * Ak * Bk * wk) * beta
             etot += (h + tail0 + tail1) * spin_fac / 2.0
     return float(etot)
+
+
+# ----------------------------------------------------------------------
+# real-space (inequivalent-site) local GF — the ed_nano-class layer
+# ----------------------------------------------------------------------
+
+def _z(cfg: EDConfig, axis: str) -> np.ndarray:
+    return grids.z_mats(cfg) if axis == "mats" else grids.z_real(cfg)
+
+
+def _sig_so(cfg: EDConfig, sigma_lat) -> np.ndarray:
+    """[Nlat, Nspin, Nspin, Norb, Norb, L] -> [Nlat, Nso, Nso, L]
+    (io = a + s*Norb within a site)."""
+    nso = cfg.nspin * cfg.norb
+    sig = np.asarray(sigma_lat, dtype=complex)
+    return sig.transpose(0, 1, 3, 2, 4, 5).reshape(sig.shape[0], nso, nso,
+                                                   sig.shape[-1])
+
+
+def _embed(sc, nlat: int, nso: int):
+    """[Lc, Nlat, Nso, Nso] -> site-block-diagonal [Lc, Nlso, Nlso]."""
+    Lc = sc.shape[0]
+    S = torch.zeros((Lc, nlat * nso, nlat * nso), dtype=torch.complex128,
+                    device=sc.device)
+    for i in range(nlat):
+        S[:, i * nso:(i + 1) * nso, i * nso:(i + 1) * nso] = sc[:, i]
+    return S
+
+
+def _site_blocks(G, cfg: EDConfig, nlat: int) -> np.ndarray:
+    """Site-diagonal blocks of [Lc, Nlso, Nlso] (site-major) as
+    [Nlat, Nspin, Nspin, Norb, Norb, Lc] on the host."""
+    ns_, no = cfg.nspin, cfg.norb
+    nso = ns_ * no
+    Lc = G.shape[0]
+    d = torch.diagonal(G.reshape(Lc, nlat, nso, nlat, nso), dim1=1, dim2=3)
+    d = d.cpu().numpy()                            # [Lc, nso, nso, nlat]
+    return d.reshape(Lc, ns_, no, ns_, no, nlat).transpose(5, 1, 3, 2, 4, 0)
+
+
+def gloc_realspace(cfg: EDConfig, hij: np.ndarray, sigma_lat: np.ndarray,
+                   axis: str = "mats", chunk: int = 64,
+                   device="cuda") -> np.ndarray:
+    """Site-resolved local GF of a finite real-space Hamiltonian:
+
+        G(z) = [(z+mu) I - Hij - Σ(z)]^{-1},  Σ block-diagonal per site
+
+    hij: [Nlso, Nlso] (Nlso = Nlat*Nspin*Norb, io = a + s*Norb + ilat*Nso);
+    sigma_lat: [Nlat, Nspin, Nspin, Norb, Norb, L]. Returns the
+    site-diagonal blocks [Nlat, Nspin, Nspin, Norb, Norb, L]
+    (dmft_gloc_matsubara(Hij,[1d0],...) as drivers/ed_nano.f90:275 uses
+    it). One batched complex128 inversion per chunk of frequencies on
+    `device` (torch.linalg.inv; the reference leaves it to XLA, outside
+    any Pallas kernel)."""
+    from .device import resolve
+    nlat = sigma_lat.shape[0]
+    assert hij.shape[0] == nlat * cfg.nspin * cfg.norb
+    out = np.zeros((nlat, cfg.nspin, cfg.nspin, cfg.norb, cfg.norb,
+                    sigma_lat.shape[-1]), dtype=complex)
+    for sl, G in _inverse_chunks(cfg, hij, sigma_lat, axis, chunk,
+                                 resolve(device)):
+        out[..., sl] = _site_blocks(G, cfg, nlat)
+    return out
+
+
+def kinetic_energy_realspace(cfg: EDConfig, hij: np.ndarray,
+                             sigma_lat: np.ndarray) -> float:
+    """E_kin of a finite real-space system (dmft_kinetic_energy(Hij,[1],S)):
+    (2/beta)Σ_n Tr[Hij G(iw_n)] + tail corrections (host numpy, one
+    inversion per frequency, the reference's arithmetic)."""
+    wm = grids.matsubara_fermionic(cfg)
+    ns_, no = cfg.nspin, cfg.norb
+    nso = ns_ * no
+    nlat = sigma_lat.shape[0]
+    nlso = nlat * nso
+    spin_fac = 2.0 if ns_ == 1 else 1.0
+    sig_hf = np.zeros((nlso, nlso))
+    for i in range(nlat):
+        sig_hf[i * nso:(i + 1) * nso, i * nso:(i + 1) * nso] = \
+            np.real(sigma_lat[i, ..., -1].transpose(0, 2, 1, 3
+                                                    ).reshape(nso, nso))
+    Hk = hij + 0.0
+    Ak = Hk
+    Bk = -Hk - sig_hf
+    acc = 0.0
+    sig_so = sigma_lat.transpose(0, 1, 3, 2, 4, 5).reshape(nlat, nso, nso, -1)
+    for n, w in enumerate(wm):
+        zw = 1j * w + cfg.xmu
+        S = np.zeros((nlso, nlso), dtype=complex)
+        for i in range(nlat):
+            S[i * nso:(i + 1) * nso, i * nso:(i + 1) * nso] = sig_so[i, :, :, n]
+        G = np.linalg.inv(zw * np.eye(nlso) - Hk - S)
+        Tk = np.eye(nlso) / (1j * w) - Bk / (1j * w) ** 2
+        acc += np.real(np.trace(Ak @ (G - Tk)))
+    e = acc * 4.0 / cfg.beta
+    # traces are real for hermitian Hij (complex SOC hoppings included)
+    e += 2 * np.trace(0.5 * Ak).real
+    e += 2 * np.trace(0.25 * Ak @ Bk).real * cfg.beta
+    return float(e * spin_fac / 2.0 / nlat)
+
+
+def _inverse_chunks(cfg: EDConfig, hij, sigma_lat, axis, chunk, device,
+                    lead=None):
+    """Yields (frequency slice, [(z+mu)I - Hij - Σ - lead]^{-1} as
+    [Lc, Nlso, Nlso] on `device`) per chunk of the grid; lead: None,
+    [Nlso, Nlso] or [Nlso, Nlso, L]."""
+    z = _z(cfg, axis)
+    nso = cfg.nspin * cfg.norb
+    nlat = sigma_lat.shape[0]
+    nlso = nlat * nso
+    sig = torch.as_tensor(_sig_so(cfg, sigma_lat), device=device)
+    hj = torch.as_tensor(np.asarray(hij, dtype=complex), device=device)
+    eye = torch.eye(nlso, dtype=torch.complex128, device=device)
+    zt = torch.as_tensor(z, device=device)
+    ld = None
+    if lead is not None:
+        ld = torch.as_tensor(np.asarray(lead, dtype=complex), device=device)
+        ld = ld.permute(2, 0, 1) if ld.ndim == 3 else ld[None]
+    for i0 in range(0, len(z), chunk):
+        sl = slice(i0, min(i0 + chunk, len(z)))
+        S = _embed(sig[..., sl].permute(3, 0, 1, 2), nlat, nso)
+        if ld is not None:
+            S = S + (ld[sl] if ld.shape[0] > 1 else ld)
+        yield sl, torch.linalg.inv(
+            (zt[sl] + cfg.xmu)[:, None, None] * eye - hj[None] - S)
+
+
+def _full_inverse(cfg: EDConfig, hij, sigma_lat, axis, chunk, device,
+                  lead=None):
+    """The whole grid of _inverse_chunks as [L, Nlso, Nlso]."""
+    return torch.cat([G for _, G in _inverse_chunks(
+        cfg, hij, sigma_lat, axis, chunk, device, lead)])
+
+
+def gij_realspace(cfg: EDConfig, hij: np.ndarray, sigma_lat: np.ndarray,
+                  axis: str = "real", chunk: int = 32,
+                  device="cuda") -> np.ndarray:
+    """FULL lattice Green's matrix [Nlso, Nlso, L] (dmft_gij_realaxis):
+    like gloc_realspace but returning all site off-diagonal blocks."""
+    from .device import resolve
+    G = _full_inverse(cfg, hij, sigma_lat, axis, chunk, resolve(device))
+    return G.permute(1, 2, 0).cpu().numpy()
+
+
+def gloc_realspace_full(cfg: EDConfig, hij: np.ndarray,
+                        sigma_lat: np.ndarray, axis: str = "real",
+                        lead=None, chunk: int = 32,
+                        device="cuda") -> np.ndarray:
+    """FULL (site-offdiagonal) real-space GF
+    G = [(z+mu)I - Hij - Σ - Σ_lead]^{-1}, returned as the raw
+    [Nlso, Nlso, L] matrix (nonlocal propagators for transport and the
+    effective-exchange kernel, ed_nano_fix_trans.f90 ed_get_jeff).
+    `lead`: optional [Nlso, Nlso] or [Nlso, Nlso, L] lead self-energy.
+    Batched over chunks of frequencies on `device`."""
+    from .device import resolve
+    G = _full_inverse(cfg, hij, sigma_lat, axis, chunk, resolve(device),
+                      lead=lead)
+    return G.permute(1, 2, 0).cpu().numpy()
+
+
+def effective_exchange(cfg: EDConfig, gret_full: np.ndarray,
+                       sreal_lat: np.ndarray) -> np.ndarray:
+    """Effective non-local magnetic exchange from the converged solution
+    (ed_get_jeff, ed_nano_fix_trans.f90:930-1010):
+
+        J_ij = (1/pi) Im Σ_w f(w) ΔΣ_i(w) G↑_ij(w) ΔΣ_j(w) G↓_ji(w)
+
+    with ΔΣ = (Σ↑ - Σ↓)/2 (Nspin=2, Norb=1). gret_full: the FULL
+    retarded real-space GF [Nlso, Nlso, Lreal] (site-major (site, spin));
+    sreal_lat: [Nlat, 2, 2, 1, 1, Lreal]. Returns jeff [Nlat, Nlat]
+    (host numpy, as the reference)."""
+    assert cfg.nspin == 2 and cfg.norb == 1, \
+        "ed_get_jeff: Nspin=2, Norb=1 (ed_nano_fix_trans.f90:961-962)"
+    wr = grids.real_axis(cfg)
+    fw = 1.0 / (1.0 + np.exp(np.clip(cfg.beta * wr, -500, 500)))
+    dsig = 0.5 * (sreal_lat[:, 0, 0, 0, 0] - sreal_lat[:, 1, 1, 0, 0])
+    # site-major (site, spin) layout: up index 2i, down index 2i+1
+    gup = gret_full[0::2, 0::2]           # [Nlat, Nlat, L]
+    gdw = gret_full[1::2, 1::2]
+    kern = (dsig[:, None, :] * gup * dsig[None, :, :]
+            * gdw.transpose(1, 0, 2)) * fw[None, None, :]
+    return np.imag(kern.sum(axis=-1)) / np.pi
+
+
+def transmission(cfg: EDConfig, hij: np.ndarray, sigma_lat: np.ndarray,
+                 gamma_l: np.ndarray, gamma_r: np.ndarray, chunk: int = 32,
+                 device="cuda") -> np.ndarray:
+    """Landauer transmission T(w) = Tr[Γ_L G^r Γ_R G^a] on the real axis
+    (ed_nano_transport). gamma_l/r: [Nlso, Nlso] (wide-band) or
+    [Nlso, Nlso, Lreal] (frequency-dependent lead hybridization, the
+    reference's set_hyb/dmft_set_Gamma_realaxis path); the lead self-energy
+    -(i/2)(Γ_L+Γ_R) is added to G. Batched over chunks of frequencies on
+    `device`."""
+    from .device import resolve
+    device = resolve(device)
+    gl = np.asarray(gamma_l, dtype=complex)
+    gr = np.asarray(gamma_r, dtype=complex)
+    lead = -0.5j * (gl + gr) if gl.ndim == gr.ndim else \
+        -0.5j * ((gl if gl.ndim == 3 else gl[..., None])
+                 + (gr if gr.ndim == 3 else gr[..., None]))
+    G = _full_inverse(cfg, hij, sigma_lat, "real", chunk, device, lead=lead)
+
+    def per_w(g):
+        t = torch.as_tensor(g, device=device)
+        return t.permute(2, 0, 1) if t.ndim == 3 else t[None]
+    tl, tr = per_w(gl), per_w(gr)
+    T = torch.einsum("lij,ljk,lkm,lmi->l", tl.expand(G.shape[0], -1, -1),
+                     G, tr.expand(G.shape[0], -1, -1),
+                     G.conj().transpose(1, 2))
+    return T.real.cpu().numpy()
+
+
+def wideband_leads(nlso: int, sites_l, sites_r, gamma: float,
+                   nso: int = 1) -> tuple:
+    """Γ_L, Γ_R wide-band coupling matrices for given lead-attached sites
+    (the common ed_nano_transport setup)."""
+    gl = np.zeros((nlso, nlso))
+    gr = np.zeros((nlso, nlso))
+    for s in np.atleast_1d(sites_l):
+        for k in range(nso):
+            gl[s * nso + k, s * nso + k] = gamma
+    for s in np.atleast_1d(sites_r):
+        for k in range(nso):
+            gr[s * nso + k, s * nso + k] = gamma
+    return gl, gr
+
+
+def gloc_hk_lattice(cfg: EDConfig, hk: np.ndarray, sigma_lat: np.ndarray,
+                    axis: str = "mats", chunk: int = 64,
+                    device="cuda") -> np.ndarray:
+    """Layer/site-resolved local GF with k dispersion (the ed_hm_slab
+    geometry): hk [Nlat*Nso, Nlat*Nso, Nk], sigma_lat per site
+    [Nlat, Nspin, Nspin, Norb, Norb, L] block-diagonal in sites. One
+    batched [chunk, Nk, Nlso, Nlso] inversion per chunk of frequencies on
+    `device`, averaged over k. Returns the site-diagonal blocks
+    [Nlat, Nspin, Nspin, Norb, Norb, L]."""
+    from .device import resolve
+    device = resolve(device)
+    z = _z(cfg, axis)
+    nso = cfg.nspin * cfg.norb
+    nlat = sigma_lat.shape[0]
+    nlso = nlat * nso
+    L = len(z)
+    sig = torch.as_tensor(_sig_so(cfg, sigma_lat), device=device)
+    hkT = torch.as_tensor(np.asarray(hk, dtype=complex),
+                          device=device).permute(2, 0, 1)   # [Nk, nlso, nlso]
+    eye = torch.eye(nlso, dtype=torch.complex128, device=device)
+    zt = torch.as_tensor(z, device=device)
+    out = np.zeros((nlat, cfg.nspin, cfg.nspin, cfg.norb, cfg.norb, L),
+                   dtype=complex)
+    for i0 in range(0, L, chunk):
+        zc = zt[i0:i0 + chunk]
+        S = _embed(sig[..., i0:i0 + chunk].permute(3, 0, 1, 2), nlat, nso)
+        zeta = (zc + cfg.xmu)[:, None, None] * eye - S
+        M = zeta[:, None, :, :] - hkT[None, :, :, :]
+        out[..., i0:i0 + chunk] = _site_blocks(
+            torch.mean(torch.linalg.inv(M), dim=1), cfg, nlat)
+    return out
+
+
+def gloc_realspace_superc(cfg: EDConfig, hij: np.ndarray,
+                          sigma_lat: np.ndarray, sigma_an_lat: np.ndarray,
+                          axis: str = "mats", chunk: int = 32,
+                          device="cuda"):
+    """Site-resolved Nambu local GF of a finite real-space system
+    (the ed_ahm_disorder / ed_ahm_stripe / ed_nano_sc geometry):
+
+        M = [[(z+mu) - H - Σ,  -Σᴬ       ],
+             [-Σᴬ,            (z-mu) + H + Σ̄]]
+
+    with Σ, Σᴬ site-block-diagonal; Σ̄(z) = conj(Σ(z)) on the imaginary
+    axis and conj(Σ(-w)) (the reversed grid) on the real axis. One batched
+    inversion per chunk of frequencies on `device`. Returns (G, F)
+    site-diagonal blocks [Nlat, Nspin, Nspin, Norb, Norb, L]."""
+    from .device import resolve
+    device = resolve(device)
+    z = _z(cfg, axis)
+    nso = cfg.nspin * cfg.norb
+    nlat = sigma_lat.shape[0]
+    nlso = nlat * nso
+    L = len(z)
+    sig_np = _sig_so(cfg, sigma_lat)
+    sbar_np = np.conj(sig_np) if axis == "mats" \
+        else np.conj(sig_np[..., ::-1])
+    sig = torch.as_tensor(sig_np, device=device)
+    sbar = torch.as_tensor(np.ascontiguousarray(sbar_np), device=device)
+    san = torch.as_tensor(_sig_so(cfg, sigma_an_lat), device=device)
+    hj = torch.as_tensor(np.asarray(hij, dtype=complex), device=device)
+    eye = torch.eye(nlso, dtype=torch.complex128, device=device)
+    zt = torch.as_tensor(z, device=device)
+    shape = (nlat, cfg.nspin, cfg.nspin, cfg.norb, cfg.norb, L)
+    G = np.zeros(shape, dtype=complex)
+    F = np.zeros(shape, dtype=complex)
+    for i0 in range(0, L, chunk):
+        zc = zt[i0:i0 + chunk]
+        sl = slice(i0, i0 + len(zc))
+
+        def emb(a):
+            return _embed(a[..., sl].permute(3, 0, 1, 2), nlat, nso)
+        S, Sb, SA = emb(sig), emb(sbar), emb(san)
+        blk11 = (zc + cfg.xmu)[:, None, None] * eye - hj[None] - S
+        blk22 = (zc - cfg.xmu)[:, None, None] * eye + hj[None] + Sb
+        M = torch.cat([torch.cat([blk11, -SA], dim=-1),
+                       torch.cat([-SA, blk22], dim=-1)], dim=-2)
+        Gi = torch.linalg.inv(M)
+        G[..., sl] = _site_blocks(Gi[:, :nlso, :nlso], cfg, nlat)
+        F[..., sl] = _site_blocks(Gi[:, :nlso, nlso:], cfg, nlat)
+    return G, F
 
 
 class ConvergenceMonitor:

@@ -5,6 +5,11 @@
   soc                 t2g + atomic SOC on a cubic k-grid (nonsu2, replica)
   bhz_2d              BHZ topological insulator on a square k-grid
   bhz_3d              3D BHZ, the bhz_2d loop with its own Bloch builder
+  nano                real-space DMFT of a finite structure (inequivalent
+                      sites), with its superc, adiabatic and transport forms
+  hm_square_lattice   Hubbard model on a square flake (nano's geometry)
+  lattice_loop        the shared inequivalent-site k-space loop (run_sites)
+  soc_ineq            t2g + atomic SOC on inequivalent sites (nonsu2)
 """
 
 

@@ -108,8 +108,15 @@ class EDSolver:
                 timers=self.timers, device=self.device)
         return self.solve_from_spectrum(bath, slist, zeta)
 
-    def solve_from_spectrum(self, bath, slist, zeta) -> SolveResult:
-        """GF/observables/files pipeline given a computed spectrum."""
+    def solve_from_spectrum(self, bath, slist, zeta, gf=None,
+                            chi=None) -> SolveResult:
+        """GF/observables/files pipeline given a computed spectrum (the
+        site-batched lattice path hands its spectra here). `gf`: optional
+        precomputed (Gmats, Greal) — (Gmats, Greal, Fmats, Freal) in
+        superc — from a cross-site batched GF pass (LatticeEDSolver),
+        skipping the per-site Krylov build. `chi`: optional dict {kind: chi
+        tuple} from the cross-site batched chi pass (kinds 'spin', 'dens',
+        'dens_mix', 'pair'), skipping the per-site chi builds."""
         cfg = self.cfg
         res = SolveResult()
         finite_t = cfg.finite_t or self.diag_state.lanc_nstates_total > 1
@@ -120,9 +127,10 @@ class EDSolver:
         if cfg.ed_mode == "superc":
             from .gf_superc import build_gf_superc, build_sigma_superc
             with timers("gf_resolvents"):
-                res.gmats, res.greal, res.fmats, res.freal = build_gf_superc(
-                    cfg, slist, zeta, bath, self.hloc, finite_t, self.log,
-                    device=self.device)
+                res.gmats, res.greal, res.fmats, res.freal = \
+                    gf if gf is not None else build_gf_superc(
+                        cfg, slist, zeta, bath, self.hloc, finite_t,
+                        self.log, device=self.device)
             with timers("sigma_dyson"):
                 (res.smats, res.sreal, res.smats_an, res.sreal_an,
                  res.g0mats, res.g0real, res.f0mats, res.f0real) = \
@@ -137,7 +145,7 @@ class EDSolver:
                 from .gf_normal import (build_gf_normal as build_gf,
                                         build_sigma_normal as build_sigma)
             with timers("gf_resolvents"):
-                res.gmats, res.greal = build_gf(
+                res.gmats, res.greal = gf if gf is not None else build_gf(
                     cfg, slist, zeta, bath, self.hloc, finite_t, self.log,
                     device=self.device)
             with timers("sigma_dyson"):
@@ -145,7 +153,7 @@ class EDSolver:
                     cfg, bath, self.hloc, res.gmats, res.greal,
                     device=self.device)
         if cfg.chispin_flag or cfg.chidens_flag or cfg.chipair_flag:
-            self._solve_chi(res, bath, slist, zeta, finite_t)
+            self._solve_chi(res, bath, slist, zeta, finite_t, chi or {})
         with self.timers("observables"):
             res.observables = compute_observables(cfg, slist, zeta, bath,
                                                   self.hloc, finite_t)
@@ -196,25 +204,29 @@ class EDSolver:
         self.result = res
         return res
 
-    def _solve_chi(self, res, bath, slist, zeta, finite_t) -> None:
+    def _solve_chi(self, res, bath, slist, zeta, finite_t, pre) -> None:
         """The susceptibilities the flags ask for, each written with
-        io.write_chi (ED_MAIN.f90's buildchi calls)."""
+        io.write_chi (ED_MAIN.f90's buildchi calls); a kind found in `pre`
+        (the cross-site pass's results) is taken from there."""
         from . import chi as chi_mod
         cfg = self.cfg
         args = (cfg, slist, zeta, bath, self.hloc, finite_t, self.log)
         kinds = []
         if cfg.chispin_flag:
-            kinds.append(("chi_spin", "spinChi", chi_mod.build_chi_spin))
+            kinds.append(("spin", "spinChi", chi_mod.build_chi_spin))
         if cfg.chidens_flag:
-            kinds.append(("chi_dens", "densChi", chi_mod.build_chi_dens))
+            kinds.append(("dens", "densChi", chi_mod.build_chi_dens))
             if cfg.norb > 1:
-                kinds.append(("chi_dens_mix", "densChi_mix",
+                kinds.append(("dens_mix", "densChi_mix",
                               chi_mod.build_chi_dens_mix))
         if cfg.chipair_flag:
-            kinds.append(("chi_pair", "pairChi", chi_mod.build_chi_pair))
-        for field_, name, build in kinds:
-            with self.timers("chi_resolvents"):
-                out = build(*args, device=self.device)
+            kinds.append(("pair", "pairChi", chi_mod.build_chi_pair))
+        for kind, name, build in kinds:
+            field_ = "chi_" + kind
+            out = pre.get(kind)
+            if out is None:
+                with self.timers("chi_resolvents"):
+                    out = build(*args, device=self.device)
             setattr(res, field_, out)
             edio.write_chi(cfg, name, *out, self.suffix)
 
@@ -269,6 +281,24 @@ class EDSolver:
 
     def get_phisc(self):
         return self.result.observables.phisc
+
+    def get_eimp(self):
+        E = self.result.energy
+        return np.array([E.epot, E.eknot, E.ehartree, E.epot - E.ehartree])
+
+    def get_doubles(self):
+        E = self.result.energy
+        return np.array([E.dust, E.dund, E.dse, E.dph])
+
+    def get_density_matrix(self):
+        """[Nso, Nso] impurity single-particle density matrix
+        (ed_get_density_matrix, ED_IO)."""
+        return self.result.observables.imp_density_matrix
+
+    def get_neigen_total(self) -> int:
+        """Current lanc_nstates_total after the finite-T auto-tuning
+        feedback (ed_get_neigen_total, ED_IO/get_lanc_info.f90)."""
+        return int(self.diag_state.lanc_nstates_total)
 
     def get_bath_density_matrix(self):
         """[Nspin, Nspin, Norb, Norb, Nbath] replica-bath density matrix

@@ -26,11 +26,18 @@ Bounds, measured on these configs:
 * the SOC operators <J>, <J^2>, <L.S> 1e-15 and J_imp.ed.
 """
 
+import contextlib
 import os
 
 import numpy as np
 import pytest
+import scipy.linalg  # noqa: F401  (loads the OpenBLAS of jax's LAPACK calls)
 import torch
+try:
+    from threadpoolctl import threadpool_limits
+except ImportError:           # without it the BLAS pools keep their size
+    def threadpool_limits(limits=None):
+        return contextlib.nullcontext()
 
 import dmft_ed_tpu.config as jconfig
 import dmft_ed_tpu.gf_nonsu2 as jgf
@@ -47,10 +54,14 @@ import dmft_ed_tpu_torch.models.soc as tsoc
 
 @pytest.fixture(autouse=True)
 def _one_torch_thread():
-    """One intra-op thread per test (see tests/test_torch_arpack.py)."""
+    """One intra-op thread per test (see tests/test_torch_arpack.py), and
+    one BLAS thread for the JAX package's LAPACK calls (see
+    tests/test_torch_nano.py: spinning OpenBLAS threads made the SOC loop
+    test take 704 s among the parallel suite's workers)."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with threadpool_limits(limits=1):
+        yield
     torch.set_num_threads(n)
 
 
