@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """The JAX package's CPU values that ``chip_smoke.py`` holds phases 6, 8,
-9, 10, 11, 12 and 13 to.
+9, 10, 11, 12, 13 and 14 to.
 
 * ``--case bethe``: the canonical Hubbard loop of phase 6
   (``dmft_ed_tpu.models.hm_bethe.run`` with the package defaults: Norb=1,
@@ -41,6 +41,11 @@
   driver's defaults (nlat=2, nk=6; Norb=3, Nbath=1, nonsu2, a replica
   bath, U=1) for ``--nloop`` iterations: dens per site and orbital,
   |Σ_{↑↓}(iω)| per site and the DMFT error (phase 13(d)).
+* ``--case drivers``: each of the ten single-site drivers of phase 14(a)
+  (the cases of ``chip_smoke.DRIVER_CASES``, run through the JAX
+  package's modules), each in a directory of its own: the
+  first solve's egs, dens and docc, the last solve's dens and docc, the
+  iterations and the seconds (about 5 minutes in all).
 
 The JAX package's nonsu2 G holds <<c_{b,s'}; c†_{a,s}>> at [s, s', a, b],
 the transpose of G0's convention (ROADMAP.md §3), which the port mends.
@@ -261,6 +266,45 @@ def run_soc_ineq(nloop: int) -> dict:
                           for i in range(len(r.smats_ineq))])
 
 
+def run_drivers() -> dict:
+    import importlib
+    import numpy as np
+    from chip_smoke import DRIVER_CASES
+    from dmft_ed_tpu.config import EDConfig
+    from dmft_ed_tpu.models import kspace
+    from dmft_ed_tpu.solver import EDSolver
+    seen, solve = [], EDSolver.solve
+
+    def recorded(self, bath):
+        r = solve(self, bath)
+        o = r.observables
+        seen.append((float(r.egs), o.dens.tolist(), o.docc.tolist()))
+        return r
+    EDSolver.solve = recorded
+    out = {}
+    for name, (entry, cfg_kw, run_kw, hk) in DRIVER_CASES.items():
+        os.mkdir(name)
+        os.chdir(name)
+        t0 = time.time()
+        seen.clear()
+        mod = importlib.import_module(f"dmft_ed_tpu.models.{name}")
+        args = ()
+        if hk is not None:
+            H = getattr(kspace, hk[0])(**hk[1])
+            args = (H,)
+            if name == "material":
+                mod.write_hk_w90("hk.in", H, np.zeros((H.shape[-1], 3)))
+                args = ("hk.in",)
+        r = getattr(mod, entry)(EDConfig(**cfg_kw).validate(), *args,
+                                log=lambda *a, **k: None, **run_kw)
+        os.chdir("..")
+        out[name] = dict(iterations=int(r.iterations), first_egs=seen[0][0],
+                         first_dens=seen[0][1], first_docc=seen[0][2],
+                         dens=seen[-1][1], docc=seen[-1][2],
+                         seconds=time.time() - t0)
+    return dict(case="drivers", drivers=out)
+
+
 def run_jz2() -> dict:
     import numpy as np
     from dmft_ed_tpu import bath
@@ -285,7 +329,8 @@ def run_jz2() -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--case", choices=("bethe", "ahm", "nbath9", "soc", "bhz",
-                                       "jz2", "flake", "soc_ineq"),
+                                       "jz2", "flake", "soc_ineq",
+                                       "drivers"),
                     required=True)
     ap.add_argument("--method", default="arpack")
     ap.add_argument("--nloop", type=int, default=None,
@@ -304,7 +349,8 @@ def main() -> int:
                "jz2": run_jz2,
                "flake": lambda: run_flake(args.nloop or FLAKE_NLOOP),
                "soc_ineq": lambda: run_soc_ineq(
-                   args.nloop or SOC_INEQ_NLOOP)}[args.case]()
+                   args.nloop or SOC_INEQ_NLOOP),
+               "drivers": run_drivers}[args.case]()
         os.chdir(REPO)
     print(json.dumps(out))
     return 0

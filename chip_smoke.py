@@ -31,9 +31,10 @@ when any is missing or any phase fails. Phases:
    the JAX package's docc after the same count;
 7. the thick restart at full width: one ``EDSolver.solve`` of the Nbath=11
    config with ``lanc_method="arpack"`` and ``chispin_flag`` on phase 3's
-   final bath, with ``native`` and with ``ozaki5x7`` (its p2 buckets run
-   the stacked restart over zero-embedded operators), held to phase 4's
-   plain-Lanczos egs and to each other;
+   final bath, with ``native`` and with ``ozaki5x7`` (over the native
+   solve's ground-state sector and its neighbours, ``ed_sectors``; its
+   p2 bucket runs the stacked restart over zero-embedded operators),
+   held to phase 4's plain-Lanczos egs and to each other;
 8. the canonical attractive-Hubbard loop: ``models.ahm_bethe.run`` with the
    package defaults (``arpack``, ``native``) at Norb=1, Nbath=6, U=-2,
    beta=1000, Lmats=Lreal=5000, dmft_error=1e-5, to convergence, held to
@@ -44,7 +45,8 @@ when any is missing or any phase fails. Phases:
    (b) the Sz=0 operator, whose pairing mix terms are rectangular Ozaki
    products C(10, n-+1) x C(10, n), under ``native`` and ``ozaki5x7``:
    applied to 4 seeded vectors and run 40 Lanczos steps, held to each
-   other, with the kernel's launches;
+   other, with the kernel's launches and a sample of its calls held
+   bitwise against the plain version;
 10. the SOC loop: ``models.soc.run`` with the driver defaults (Norb=3,
     Nbath=1, ``ed_mode="nonsu2"``, a replica bath, nk=8, the package
     defaults), cut to SOC_NLOOP iterations and held to the JAX package's
@@ -81,7 +83,26 @@ when any is missing or any phase fails. Phases:
     version) and not under native; (d) ``models.soc_ineq.run`` with the
     driver's defaults (2 sites, nonsu2, a replica bath), 2 iterations,
     held to ``chip_reference.py --case soc_ineq``;
-5. printed last, after phases 6 to 13: a ``{"kernels": [...]}`` line, the
+14. the single-site drivers (ROADMAP.md §1 item 2), each part in a
+    directory of its own: (a) each of ``hm_bethe_nbands``,
+    ``hm_2bands_bethe``, ``hm_dos``, ``ehm_bethe``, ``hm_bethe_afm``,
+    ``ahm_2bands``, ``kspace.run_kspace``, ``hm_multiband``, ``material``
+    (an H(k) file it writes) and ``ahm_square`` at small depth (Nbath
+    2-4, Lmats=200, 2 iterations), held to ``chip_reference.py --case
+    drivers``, with its seconds; (b) BASELINE.json's 2-band Hund config at
+    full width (``hm_bethe_nbands``: Norb=2, a hybrid bath of 10 levels,
+    U'=U-2J, Jx=Jp=J; the (6,6) sector has 853,776 states), one
+    iteration with the package defaults: half filling before the fit,
+    the stage seconds, the largest sector's matvecs and torch calls per
+    matvec (eager and graphed), the peak memory, and the ground state's
+    sectors again with plain Lanczos (egs 1e-9); (c) that sector's
+    operator, spin exchange and pair hopping as four mix terms, under
+    native and ozaki5x7: H v, 40 Lanczos steps, the kernel's launches and
+    a sample of its calls held bitwise against the plain version; then
+    the thick restart under ozaki5x7 of the (6,6) sector (``ed_sectors``):
+    the mix terms keep it on the serial restart, with the kernel in every
+    matvec; egs held to (b)'s native egs;
+5. printed last, after phases 6 to 14: a ``{"kernels": [...]}`` line, the
    card line, and as the last line ``{"ok": true, "device": {...}}``.
 
 Phases 10-12 print their seconds, the solver's stage timers, the matvecs
@@ -90,11 +111,14 @@ peak device memory.
 
 Phase 2 also holds the kernel at phase 9's classes: the 252 block class on
 both sides and the largest pairing classes, 252 -> 210 and 210 -> 252, on
-both sides.
+both sides; and at phase 14's mix-term classes, a 924x924 hop operator
+c+_a c_b against a 924x4096 panel and against the 924x924 panel of one
+Krylov vector of the (6,6) sector (the shape of every product phase
+14(c)'s Lanczos steps make), on both sides.
 
 Every path runs with the launch counts reset just before it and read just
-after it. ``--phases 10,12`` (for development; 10-13) runs phase 1 and
-the listed phases only, and prints no result line.
+after it. ``--phases 10,12`` (for development; any of 10-14) runs phase
+1 and the listed phases only, and prints no result line.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -154,6 +178,12 @@ TOL_CANON = 2e-3
 
 # Phase 7: the Nbath=11 config on the thick restart, with chi_spin.
 ARPACK_CFG = dict(MAIN_CFG, lanc_method="arpack", chispin_flag=True)
+# The whole ozaki5x7 sweep took 112.3 s on an H100 (host bound, PERF.md),
+# so the ozaki5x7 solve sweeps the native solve's ground-state sector and
+# its neighbours N +- 1 of each spin (ed_sectors over the
+# sectors_list.restart the native solve wrote): (7,6) and (6,7), 792 x
+# 924, still stack with (6,6) in the 2^20 bucket, zero-embedded
+ARPACK_OZAKI_SECTORS = dict(ed_sectors=True, ed_sectors_shift=1)
 # |egs(arpack) - egs(plain Lanczos)| on one bath, both native f64
 TOL_EGS_METHODS = 1e-9
 # max|native - ozaki5x7| of chi_spin(iv) relative to max|chi_spin(iv)|
@@ -348,6 +378,117 @@ SOC_INEQ_JAX = dict(
     dens=[[1.0357931448649873, 1.035793144864996, 1.0357931448649929],
           [1.0357931448649844, 1.035793144864995, 1.0357931448649798]],
     smats_ud=[0.003435920565267747, 0.003435920565412501])
+
+# Phase 14: the single-site drivers (ROADMAP.md §1 item 2).
+# (a) each new driver's run() on the card at small depth (Nbath 2-4,
+# Lmats=200, nk <= 8, 2 iterations, the fits to a tight stop), held to the
+# JAX package's CPU run of the same case (python3 chip_reference.py --case
+# drivers): the first solve, before any fit, in egs; dens and docc after
+# two iterations by the backend-parity contract (PERF_NOTES.md). Two
+# bands of one width would leave the hybrid fit an orbital rotation free
+# (tests/test_torch_drivers_bethe.py), so hm_bethe_nbands takes two.
+DRIVER_BASE = dict(beta=50.0, lmats=200, lreal=64, lfit=200, nloop=2,
+                   dmft_error=1e-12, ed_verbose=0, cg_ftol=1e-12,
+                   cg_niter=1000)
+HUND_SMALL = dict(DRIVER_BASE, norb=2, nbath=4, bath_type="hybrid",
+                  uloc=(2.0, 2.0), ust=1.5, jh=0.25, jx=0.25, jp=0.25)
+TWO_BANDS = dict(DRIVER_BASE, norb=2, nbath=3, uloc=(2.0, 2.0), ust=1.0,
+                 jh=0.5)
+# name: (entry point, config, run() keywords, Bloch builder or None)
+DRIVER_CASES = {
+    "hm_bethe_nbands": ("run", HUND_SMALL,
+                        dict(wbethe=[1.0, 1.3], dbethe=[0.0, 0.1]), None),
+    "hm_2bands_bethe": ("run", TWO_BANDS,
+                        dict(wratio=2.0, delta=0.3, sc_method=2), None),
+    "hm_dos": ("run", dict(TWO_BANDS, jh=0.0),
+               dict(dos_model="flat", wband=[1.0, 1.5], delta=0.2, le=300),
+               None),
+    "ehm_bethe": ("run", dict(DRIVER_BASE, norb=1, nbath=4, uloc=(2.0,),
+                              xmu=0.1), dict(w0=0.4, le=300), None),
+    "hm_bethe_afm": ("run", dict(DRIVER_BASE, norb=1, nbath=4, nspin=2,
+                                 uloc=(3.0,)), {}, None),
+    "ahm_2bands": ("run", dict(DRIVER_BASE, norb=2, nbath=3,
+                               ed_mode="superc", uloc=(-2.0, -2.0)),
+                   dict(alpha=0.6, le=300, wmixing=0.5), None),
+    "kspace": ("run_kspace", dict(DRIVER_BASE, norb=2, nbath=3,
+                                  uloc=(2.0, 2.0)), {},
+               ("hk_haldane", dict(nk=8, t1=0.5, t2=0.1, mass=0.1))),
+    "hm_multiband": ("run", dict(TWO_BANDS, norb=3, nbath=2,
+                                 uloc=(2.0, 2.0, 2.0)),
+                     dict(model="3b_square", nk=8), None),
+    "material": ("run", dict(TWO_BANDS, jh=0.0), {},
+                 ("hk_2bands_hyb_fcc3d", dict(nk=6, mh=0.1, lam=0.4))),
+    "ahm_square": ("run", dict(DRIVER_BASE, norb=1, nbath=4,
+                               ed_mode="superc", uloc=(-2.0,)),
+                   dict(nk=8), None),
+}
+# the JAX package's CPU run of each case (python3 chip_reference.py --case
+# drivers): the iterations, the first solve's egs, the last dens and docc
+DRIVERS_JAX = {
+    "hm_bethe_nbands": dict(
+        iterations=2, first_egs=-7.479328353833774,
+        dens=[1.0062967207131859, 0.9870083848873211],
+        docc=[0.04675419531274905, 0.05901537344662349]),
+    "hm_2bands_bethe": dict(
+        iterations=2, first_egs=-11.402055880756208,
+        dens=[1.0174621174769312, 0.9657700281884851],
+        docc=[0.047432799450690136, 0.10439628079393719]),
+    "hm_dos": dict(
+        iterations=2, first_egs=-11.520337355029145,
+        dens=[1.0493495361445657, 0.9504911908833291],
+        docc=[0.15724215765831928, 0.13997988916651902]),
+    "ehm_bethe": dict(
+        iterations=2, first_egs=-5.773593608589926,
+        dens=[1.0221960881427217],
+        docc=[0.11069757216241899]),
+    "hm_bethe_afm": dict(
+        iterations=2, first_egs=-5.87006484669077,
+        dens=[0.9999657731242352],
+        docc=[0.024166419990704468]),
+    "ahm_2bands": dict(
+        iterations=2, first_egs=-10.988217965289993,
+        dens=[0.9999996603549667, 1.0000971627964255],
+        docc=[0.40179260900607283, 0.4489873438935985]),
+    "kspace": dict(
+        iterations=2, first_egs=-11.002302094016802,
+        dens=[0.9528294533621343, 1.0471705506591322],
+        docc=[0.14606476326552437, 0.1932353262135535]),
+    "hm_multiband": dict(
+        iterations=2, first_egs=-15.9979033937913,
+        dens=[0.9998077068325953, 0.9998077058792901, 0.994517098720839],
+        docc=[0.05694000618575272, 0.056940130122153335,
+              0.05438569186438644]),
+    "material": dict(
+        iterations=2, first_egs=-11.520337355029135,
+        dens=[0.9404651621523361, 1.059534825734685],
+        docc=[0.15390371037030695, 0.21343857005481218]),
+    "ahm_square": dict(
+        iterations=2, first_egs=-5.692449664093605,
+        dens=[1.000026576240463],
+        docc=[0.42117410091592805]),
+}
+TOL_DRIVER_EGS = 1e-8
+TOL_DRIVER_DENS = 1e-3
+TOL_DRIVER_DOCC = 2e-3
+# (b) full width: BASELINE.json's 2-band Hund config, hybrid bath, at
+# Nbath=10 (Ns=12: the (6,6) sector has 924^2 = 853,776 states), U'=U-2J,
+# Jx=Jp=J, package defaults (arpack, native), cut to one iteration. The
+# first solve sees the particle-hole symmetric initial bath at xmu=0:
+# half filling per orbital. Its ground-state sectors are solved again
+# with plain Lanczos (ed_sectors over the sectors_list.restart the
+# thick restart wrote): egs to TOL_EGS_METHODS.
+NBANDS_CFG = dict(norb=2, nbath=10, bath_type="hybrid", uloc=(2.0, 2.0),
+                  ust=1.5, jh=0.25, jx=0.25, jp=0.25, hfmode=True, xmu=0.0,
+                  beta=100.0, lmats=1024, lreal=256, nloop=1,
+                  dmft_error=1e-12, ed_verbose=0)
+TOL_NBANDS_DENS = 1e-6
+# (c) the (6,6) sector's operator, its spin exchange and pair hopping as
+# four mix terms (two more Ozaki products each), native against ozaki5x7
+# on the initial bath: H v to TOL_EXACT_REL, the leading HUND_KRYLOV
+# Lanczos coefficients to TOL_KRYLOV; and the ozaki5x7 thick restart of
+# that sector, which phase 7's sector cut left as the only ozaki5x7 run
+# of the serial restart: egs to TOL_EGS
+HUND_KRYLOV = 40
 
 
 def card_line() -> str:
@@ -747,8 +888,9 @@ def arpack_solve(device, bath, egs_lanczos):
     from dmft_ed_tpu_torch.solver import EDSolver
     res, launches = {}, {}
     for prec in ("native", "ozaki5x7"):
+        cut = ARPACK_OZAKI_SECTORS if prec != "native" else {}
         cfg = EDConfig(**dict(ARPACK_CFG, matmul_precision=prec,
-                              ed_verbose=3)).validate()
+                              ed_verbose=3, **cut)).validate()
         hloc = np.zeros((cfg.nspin, cfg.nspin, cfg.norb, cfg.norb))
         lines = []
         solver = EDSolver(cfg, hloc, device=device, log=lambda m: lines.append(
@@ -925,21 +1067,12 @@ def superc_solve(device):
 
 def superc_operator(device):
     """Phase 9b: make_matvec_op of SUPERC_CFG's Sz=0 sector under native
-    and ozaki5x7, applied to 4 seeded vectors (one batched call) and run
-    40 Lanczos steps from one seeded v0; the two agree within
-    TOL_EXACT_REL (vectors) and TOL_KRYLOV (leading 24 alpha, beta).
-    Returns the ozaki5x7 operator's kernel launches (counts reset before
-    the ozaki5x7 encode, read after its Lanczos run)."""
+    and ozaki5x7 (operator_native_vs_ozaki, 24 leading coefficients).
+    Returns the ozaki5x7 operator's kernel launches."""
     import numpy as np
-    import torch
     from dmft_ed_tpu_torch.bath import init_bath
     from dmft_ed_tpu_torch.config import EDConfig
-    from dmft_ed_tpu_torch.hamiltonian import (build_sector_hamiltonian,
-                                               make_matvec_op, apply_op,
-                                               flatten_blocks,
-                                               unflatten_blocks)
-    from dmft_ed_tpu_torch.kernels import KERNELS, reset_launches
-    from dmft_ed_tpu_torch.lanczos import lanczos_tridiag_op
+    from dmft_ed_tpu_torch.hamiltonian import build_sector_hamiltonian
     from dmft_ed_tpu_torch.sectors import sector_table
     cfg = EDConfig(**SUPERC_CFG).validate()
     hloc = np.zeros((cfg.nspin, cfg.nspin, cfg.norb, cfg.norb))
@@ -948,49 +1081,78 @@ def superc_operator(device):
     ham = build_sector_hamiltonian(cfg, sec, init_bath(cfg, hloc), hloc)
     print(f"superc Sz=0 sector: dim {sec.dim}, {len(sec.blocks)} blocks, "
           f"{len(ham.mix)} mix terms, host build {time.time() - t0:.3f} s")
-    rng = np.random.default_rng(90)
-    X = torch.as_tensor(rng.normal(size=(4, sec.dim)), device=device)
-    v0 = torch.as_tensor(rng.normal(size=sec.dim), device=device)
+    return operator_native_vs_ozaki(device, cfg, ham, "superc operator",
+                                    24, seed=90)
+
+
+def operator_native_vs_ozaki(device, cfg, ham, label, nkry, seed):
+    """make_matvec_op of one sector Hamiltonian under native and ozaki5x7,
+    applied to 4 seeded vectors (one batched call) and run 40 Lanczos
+    steps from one seeded v0; the two agree within TOL_EXACT_REL (vectors)
+    and TOL_KRYLOV (leading `nkry` alpha, beta); the ozaki5x7 run's first
+    two kernel calls per operand shape held bitwise against the plain
+    version (held_kernel). Returns the ozaki5x7 operator's kernel
+    launches (counts reset before the ozaki5x7 encode, read after its
+    Lanczos run)."""
+    import numpy as np
+    import torch
+    from dmft_ed_tpu_torch.hamiltonian import (make_matvec_op, apply_op,
+                                               flatten_blocks,
+                                               unflatten_blocks)
+    from dmft_ed_tpu_torch.kernels import KERNELS, reset_launches
+    from dmft_ed_tpu_torch.lanczos import lanczos_tridiag_op
+    dim = ham.sector.dim
+    rng = np.random.default_rng(seed)
+    X = torch.as_tensor(rng.normal(size=(4, dim)), device=device)
+    v0 = torch.as_tensor(rng.normal(size=dim), device=device)
     v0 = v0 / torch.linalg.vector_norm(v0)
+
     def stamp():
         if device.type == "cuda":
             torch.cuda.synchronize()
         return time.time()
 
-    out, launches = {}, {}
+    out, launches, samples = {}, {}, []
     for prec in ("native", "ozaki5x7"):
         c = cfg.replace(matmul_precision=prec)
         reset_launches()
-        t0 = stamp()
-        spec, arrays, blocks = make_matvec_op(ham, c, device)
-        t1 = stamp()
-        Y = flatten_blocks(apply_op(spec, arrays,
-                                    unflatten_blocks(X, blocks)))
-        t2 = stamp()
-        al, be, ns = lanczos_tridiag_op(spec, blocks, arrays, v0, 40)
-        t3 = stamp()
+        with held_kernel() if prec != "native" \
+                else contextlib.nullcontext([]) as hk:
+            t0 = stamp()
+            spec, arrays, blocks = make_matvec_op(ham, c, device)
+            t1 = stamp()
+            Y = flatten_blocks(apply_op(spec, arrays,
+                                        unflatten_blocks(X, blocks)))
+            t2 = stamp()
+            al, be, ns = lanczos_tridiag_op(spec, blocks, arrays, v0, 40)
+            t3 = stamp()
+        samples += hk
         launches[prec] = {n: fn.launches for n, fn in KERNELS.items()}
         out[prec] = (Y, al.cpu().numpy(), be.cpu().numpy(), int(ns))
-        print(f"superc operator {prec}: encode {t1 - t0:.3f} s, apply to 4 "
+        print(f"{label} {prec}: encode {t1 - t0:.3f} s, apply to 4 "
               f"vectors {t2 - t1:.3f} s, 40 Lanczos steps {t3 - t2:.3f} s, "
               f"launches={launches[prec]}")
     (Yn, an, bn, nn), (Yo, ao, bo, no) = out["native"], out["ozaki5x7"]
     rel = float((Yn - Yo).abs().max()) / float(Yn.abs().max())
-    d_kry = float(max(np.max(np.abs(an[:24] - ao[:24])),
-                      np.max(np.abs(bn[:24] - bo[:24]))))
-    print(f"superc operator native vs ozaki5x7: max|d Hv|/max|Hv|={rel:.3e} "
-          f"(bound {TOL_EXACT_REL:g}); leading 24 alpha, beta "
-          f"max|d|={d_kry:.3e} (bound {TOL_KRYLOV:g}); steps {nn}, {no}")
+    d_kry = float(max(np.max(np.abs(an[:nkry] - ao[:nkry])),
+                      np.max(np.abs(bn[:nkry] - bo[:nkry]))))
+    print(f"{label} native vs ozaki5x7: max|d Hv|/max|Hv|={rel:.3e} "
+          f"(bound {TOL_EXACT_REL:g}); leading {nkry} alpha, beta "
+          f"max|d|={d_kry:.3e} (bound {TOL_KRYLOV:g}); steps {nn}, {no}; "
+          f"kernel calls held bitwise: {len(samples)} "
+          f"{[k for k, _ in samples]}")
     bad = []
     if not rel <= TOL_EXACT_REL:
         bad.append("H v differs")
-    if not d_kry <= TOL_KRYLOV or nn < 24 or no < 24:
+    if not d_kry <= TOL_KRYLOV or nn < nkry or no < nkry:
         bad.append("Lanczos coefficients differ")
     for name, n in launches["ozaki5x7"].items():
         if n <= 0:
             bad.append(f"the ozaki5x7 operator never launched {name}")
+    if not samples:
+        bad.append("no kernel call was held against the plain version")
     if bad:
-        raise AssertionError("superc operator: " + "; ".join(bad))
+        raise AssertionError(f"{label}: " + "; ".join(bad))
     return launches["ozaki5x7"]
 
 
@@ -1565,6 +1727,288 @@ def flake_phases(device, work):
     return out
 
 
+@contextlib.contextmanager
+def record_solves():
+    """While active, every EDSolver.solve appends (egs, dens, docc) to the
+    yielded list."""
+    from dmft_ed_tpu_torch.solver import EDSolver as cls
+    seen, orig = [], cls.solve
+
+    def solve(self, bath):
+        r = orig(self, bath)
+        o = r.observables
+        seen.append((float(r.egs), o.dens.tolist(), o.docc.tolist()))
+        return r
+    cls.solve = solve
+    try:
+        yield seen
+    finally:
+        cls.solve = orig
+
+
+def run_driver(name: str, device):
+    """DRIVER_CASES[name] through models.<name> on `device`, in the cwd:
+    material's H(k) file is written there by its write_hk_w90."""
+    import importlib
+    import numpy as np
+    from dmft_ed_tpu_torch.config import EDConfig
+    from dmft_ed_tpu_torch.models import kspace
+    entry, cfg_kw, run_kw, hk = DRIVER_CASES[name]
+    mod = importlib.import_module(f"dmft_ed_tpu_torch.models.{name}")
+    cfg = EDConfig(**cfg_kw).validate()
+    args = ()
+    if hk is not None:
+        H = getattr(kspace, hk[0])(**hk[1])
+        args = (H,)
+        if name == "material":
+            mod.write_hk_w90("hk.in", H, np.zeros((H.shape[-1], 3)))
+            args = ("hk.in",)
+    return getattr(mod, entry)(cfg, *args, log=lambda *a, **k: None,
+                               device=device, **run_kw)
+
+
+def drivers_small(device):
+    """Phase 14(a): every DRIVER_CASES driver on the card, each in a
+    directory of its own: seconds, the first solve's egs and the last
+    solve's dens and docc against DRIVERS_JAX. Returns the launches per
+    kernel over all ten."""
+    import numpy as np
+    import torch
+    from dmft_ed_tpu_torch.kernels import KERNELS, reset_launches
+    bad, here = [], os.getcwd()
+    reset_launches()
+    for name in DRIVER_CASES:
+        os.mkdir(name)
+        os.chdir(name)
+        t0 = time.time()
+        with record_solves() as seen:
+            r = run_driver(name, device)
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+        os.chdir(here)
+        ref = DRIVERS_JAX[name]
+        (e1, _, _), (_, dens, docc) = seen[0], seen[-1]
+        d = dict(egs=abs(e1 - ref["first_egs"]),
+                 dens=float(np.max(np.abs(np.subtract(dens, ref["dens"])))),
+                 docc=float(np.max(np.abs(np.subtract(docc, ref["docc"])))))
+        tol = dict(egs=TOL_DRIVER_EGS, dens=TOL_DRIVER_DENS,
+                   docc=TOL_DRIVER_DOCC)
+        print(f"{name}: {r.iterations} iterations in {dt:.3f} s, first egs "
+              f"{e1!r}, dens {dens} docc {docc}; against the JAX "
+              "package's: " + " ".join(f"|d {k}|={v:.3e} (bound {tol[k]:g})"
+                                        for k, v in d.items()))
+        if r.iterations != len(seen) or r.iterations != ref["iterations"]:
+            bad.append(f"{name}: {r.iterations} iterations")
+        if not all(np.all(np.isfinite(x)) for x in (r.dens, r.smats,
+                                                     r.bath)):
+            bad.append(f"{name}: non-finite results")
+        bad += [f"{name}: {k}" for k in d if not d[k] <= tol[k]]
+    if bad:
+        raise AssertionError("drivers: " + "; ".join(bad))
+    return {n: fn.launches for n, fn in KERNELS.items()}
+
+
+def nbands_full(device):
+    """Phase 14(b): hm_bethe_nbands.run on NBANDS_CFG, one iteration:
+    seconds per stage, the largest sector's matvecs, torch calls and ms
+    per matvec (eager and graphed), the peak device memory; half filling
+    before the fit; the ground state's sectors again with plain Lanczos.
+    Returns (the initial bath, the first solve's egs, the launches per
+    kernel)."""
+    import numpy as np
+    import torch
+    from dmft_ed_tpu_torch.bath import unpack_bath
+    from dmft_ed_tpu_torch.config import EDConfig
+    from dmft_ed_tpu_torch.kernels import KERNELS, reset_launches
+    from dmft_ed_tpu_torch.models import hm_bethe_nbands
+    from dmft_ed_tpu_torch.sectors import sector_table
+    from dmft_ed_tpu_torch.solver import EDSolver
+    cfg = EDConfig(**NBANDS_CFG).validate()
+    hloc = np.zeros((1, 1, cfg.norb, cfg.norb))
+    solver = EDSolver(cfg, hloc, log=lambda m: None, device=device)
+    bath0 = solver.init_solver()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.time()
+    with count_matvecs() as mv:
+        r = hm_bethe_nbands.run(cfg, solver=solver, device=device,
+                                log=lambda *a, **k: None)
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    launches = {n: fn.launches for n, fn in KERNELS.items()}
+    peak = _peak_gib()
+    sec = max(sector_table(cfg).sectors, key=lambda x: x.dim)
+    calls, ms, ms_g, nmix = matvec_calls(cfg, sec, unpack_bath(cfg, bath0),
+                                         hloc, device)
+    with open("sectors_list.restart") as fh:
+        gs = [ln.strip() for ln in fh if ln.strip()]
+    t1 = time.time()
+    lz = EDSolver(cfg.replace(lanc_method="lanczos", ed_sectors=True,
+                              ed_sectors_shift=0), hloc, log=lambda m: None,
+                  device=device).solve(bath0)
+    torch.cuda.synchronize()
+    dt_l = time.time() - t1
+    d_dens = float(np.max(np.abs(r.dens - 1.0)))
+    d_egs = abs(r.egs - lz.egs)
+    print(f"hm_bethe_nbands Nbath=10 hybrid Hund: 1 iteration in {dt:.3f} s"
+          f"\n  stages {_stages(solver.timers)}\n  largest sector "
+          f"{sec.qn} dim {sec.dim}: {mv.get(sec.dim, 0)} matvecs, {nmix} "
+          f"mix entry (bmix), {calls} torch calls, {ms:.3f} ms eager and "
+          f"{ms_g:.3f} ms graphed per matvec; {sum(mv.values())} matvecs "
+          f"in all; peak device memory {peak:.3f} GiB; launches={launches}"
+          f"\n  dens={r.dens.tolist()} docc={r.docc.tolist()} "
+          f"egs={r.egs!r}; max|dens - 1|={d_dens:.3e} (bound "
+          f"{TOL_NBANDS_DENS:g})\n  ground-state sectors {gs}: plain "
+          f"Lanczos in {dt_l:.3f} s, egs={lz.egs!r}, |d egs|={d_egs:.3e} "
+          f"(bound {TOL_EGS_METHODS:g})")
+    bad = [f"non-finite {f}" for f in ("smats", "gmats", "bath", "dens",
+                                       "docc")
+           if not np.all(np.isfinite(getattr(r, f)))]
+    if not d_dens <= TOL_NBANDS_DENS:
+        bad.append("not half filling")
+    if not d_egs <= TOL_EGS_METHODS:
+        bad.append("arpack and lanczos egs disagree")
+    if not np.all((r.docc > 0.0) & (r.docc < 0.25)):
+        bad.append(f"docc {r.docc} outside (0, 1/4)")
+    if bad:
+        raise AssertionError("hm_bethe_nbands Nbath=10: " + "; ".join(bad))
+    return bath0, r.egs, launches
+
+
+def hund_operator(device, bath0):
+    """Phase 14(c): the (6,6) sector of NBANDS_CFG on the initial bath,
+    native against ozaki5x7 (operator_native_vs_ozaki, with the kernel's
+    calls sampled bitwise against the plain version)."""
+    import numpy as np
+    from dmft_ed_tpu_torch.bath import unpack_bath
+    from dmft_ed_tpu_torch.config import EDConfig
+    from dmft_ed_tpu_torch.hamiltonian import build_sector_hamiltonian
+    from dmft_ed_tpu_torch.sectors import sector_table
+    cfg = EDConfig(**NBANDS_CFG).validate()
+    hloc = np.zeros((1, 1, cfg.norb, cfg.norb))
+    sec = sector_table(cfg).get(cfg.ns // 2, cfg.ns // 2)
+    t0 = time.time()
+    ham = build_sector_hamiltonian(cfg, sec, unpack_bath(cfg, bath0), hloc)
+    print(f"Hund sector {sec.qn}: dim {sec.dim}, {len(ham.mix)} mix terms, "
+          f"host build {time.time() - t0:.3f} s")
+    if len(ham.mix) != 4:
+        raise AssertionError(f"Hund sector: {len(ham.mix)} mix terms, not "
+                             "4 (spin exchange and pair hopping)")
+    return operator_native_vs_ozaki(device, cfg, ham, "Hund operator",
+                                    HUND_KRYLOV, seed=140)
+
+
+def hund_restart_ozaki(device, bath0, egs_native):
+    """Phase 14(c), second path: the thick restart under ozaki5x7 of the
+    (6,6) sector alone (ed_sectors over a sectors_list.restart written
+    here; it holds a component of 14(b)'s ground-state triplet), on the
+    initial bath. The mix terms keep the sector off the stacked p2-bucket
+    restart, so this is the serial restart with the kernel inside every
+    matvec. egs held to 14(b)'s native egs within TOL_EGS. Returns the
+    launches per kernel."""
+    import numpy as np
+    import torch
+    from dmft_ed_tpu_torch.bath import unpack_bath
+    from dmft_ed_tpu_torch.config import EDConfig
+    from dmft_ed_tpu_torch.diag import diagonalize
+    from dmft_ed_tpu_torch.kernels import KERNELS, reset_launches
+    from dmft_ed_tpu_torch.timer import Timers
+    cfg = EDConfig(**dict(NBANDS_CFG, matmul_precision="ozaki5x7",
+                          ed_sectors=True, ed_sectors_shift=0,
+                          ed_verbose=3)).validate()
+    hloc = np.zeros((1, 1, cfg.norb, cfg.norb))
+    with open("sectors_list.restart", "w") as fh:
+        fh.write(f"{cfg.ns // 2} {cfg.ns // 2}\n")
+    lines, timers = [], Timers()
+    reset_launches()
+    t0 = time.time()
+    with count_matvecs() as mv:
+        slist, _, _ = diagonalize(
+            cfg, unpack_bath(cfg, bath0), hloc,
+            log=lambda m: lines.append(m) if m.startswith("thick restart")
+            else None, timers=timers, device=device)
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    launches = {n: fn.launches for n, fn in KERNELS.items()}
+    d_egs = abs(slist.emin - egs_native)
+    nmv = sum(mv.values())
+    ms_mv = 1e3 * timers.acc.get("diag.krylov_serial", 0.0) / max(nmv, 1)
+    print(f"Hund thick restart ozaki5x7, the (6,6) sector: {dt:.3f} s, "
+          f"{nmv} matvecs, {ms_mv:.3f} ms per matvec in the serial route, "
+          f"launches={launches}, egs={slist.emin!r}; against 14(b)'s native "
+          f"egs: |d egs|={d_egs:.3e} (bound {TOL_EGS:g})\n  stages "
+          f"{_stages(timers)}\n  " + "\n  ".join(lines))
+    bad = []
+    if len(lines) != 1 or "bucket" in lines[0]:
+        bad.append(f"not one serial restart: {lines}")
+    if not d_egs <= TOL_EGS:
+        bad.append("egs differs from the native solve's")
+    for name, n in launches.items():
+        if n <= 0:
+            bad.append(f"never launched {name}")
+    if bad:
+        raise AssertionError("Hund thick restart ozaki5x7: "
+                             + "; ".join(bad))
+    return launches
+
+
+def hund_kernel_cases(device):
+    """Phase-2 operands at phase 14's mix-term classes: the first mix term
+    of NBANDS_CFG's (6,6) sector on its initial bath, a hop operator
+    c+_a c_b of one spin (924x924), against a 924x4096 panel and against
+    one (6,6) Krylov vector as a 924x924 panel, on both sides
+    (C_dw @ W, V @ C_up^T). Krylov-like panels from a seed."""
+    import numpy as np
+    import torch
+    from dmft_ed_tpu_torch.bath import init_bath
+    from dmft_ed_tpu_torch.config import EDConfig
+    from dmft_ed_tpu_torch.hamiltonian import build_sector_hamiltonian
+    from dmft_ed_tpu_torch.sectors import sector_table
+    cfg = EDConfig(**NBANDS_CFG).validate()
+    hloc = np.zeros((1, 1, cfg.norb, cfg.norb))
+    sec = sector_table(cfg).get(cfg.ns // 2, cfg.ns // 2)
+    t = build_sector_hamiltonian(cfg, sec, init_bath(cfg, hloc), hloc).mix[0]
+    g = torch.Generator().manual_seed(5678)
+    n = 2 ** cfg.ns     # the dw panel: every sector with n_dw = 6
+
+    def randn(*shape):
+        return (torch.randn(*shape, dtype=torch.float64, generator=g)
+                / shape[0] ** 0.5).to(device)
+
+    def dense(coo):
+        return torch.as_tensor(coo.to_dense(), dtype=torch.float64,
+                               device=device)
+    K = t.dw.shape[0]
+    return [c for w in (n, K) for c in (
+        (f"mix dw K={K} N={w} (hop C @ W)", dense(t.dw), randn(K, w), 5, 7,
+         None, None),
+        (f"mix up K={K} M={w} (V @ hop C^T)", randn(w, K), dense(t.up).T,
+         5, 7, None, None))]
+
+
+def driver_phases(device, work):
+    """Phase 14 (a)-(c), each in a directory of its own. Returns the
+    launches per kernel of each path."""
+    out = {}
+    t14 = time.time()
+    for part in ("a", "b", "c"):
+        os.mkdir(f"phase14{part}")
+        os.chdir(f"phase14{part}")
+        t0 = time.time()
+        if part == "a":
+            out["drivers_native"] = drivers_small(device)
+        elif part == "b":
+            bath0, egs0, out["nbands_nbath10_native"] = nbands_full(device)
+        else:
+            out["hund_operator_ozaki5x7"] = hund_operator(device, bath0)
+            out["hund_restart_ozaki5x7"] = hund_restart_ozaki(
+                device, bath0, egs0)
+        print(f"phase 14({part}): {time.time() - t0:.3f} s")
+        os.chdir(work)
+    print(f"phase 14: {time.time() - t14:.3f} s")
+    return out
+
+
 def nonsu2_phases(device, want, work):
     """Phases 10-12, each in a directory of its own; returns the launches
     per kernel of each (None for a phase not run)."""
@@ -1596,10 +2040,12 @@ def nonsu2_phases(device, want, work):
 
 
 def dev_phases(device, want, work):
-    """--phases: the listed phases of 10-13 only; no result line."""
+    """--phases: the listed phases of 10-14 only; no result line."""
     nonsu2_phases(device, want, work)
     if want(13):
         flake_phases(device, work)
+    if want(14):
+        driver_phases(device, work)
     print("chip_smoke: development run of some phases only; no result")
     return 0
 
@@ -1644,7 +2090,7 @@ def main() -> int:
             # ---- phase 2: kernel vs plain at the main path's shapes
             cases = digit_matmul_cases(
                 device, kernel_cases(device, MAIN_CFG)
-                + superc_kernel_cases(device))
+                + superc_kernel_cases(device) + hund_kernel_cases(device))
             # ---- phase 3: the first slice's path
             r, obs, launches = main_path(device, MAIN_CFG, MAIN_RUN,
                                          hm_bethe)
@@ -1679,6 +2125,8 @@ def main() -> int:
                 device, want, work)
             # ---- phase 13: inequivalent sites on the default flake
             launches_13 = flake_phases(device, work)
+            # ---- phase 14: the single-site drivers, the Hund impurity
+            launches_14 = driver_phases(device, work)
         finally:
             os.chdir(REPO)
 
@@ -1708,10 +2156,12 @@ def main() -> int:
             "soc_loop_native": launches_soc["digit_matmul"],
             "bhz_loop_native": launches_bhz["digit_matmul"],
             "spin_orbit_impurity_native": launches_jz["digit_matmul"],
-            **{k: v["digit_matmul"] for k, v in launches_13.items()}},
+            **{k: v["digit_matmul"] for k, v in launches_13.items()},
+            **{k: v["digit_matmul"] for k, v in launches_14.items()}},
         "ms_per_class": {c["label"]: c["ms"] for c in cases
                          if "embedded" in c["label"]
-                         or c["label"].startswith(("fused", "superc"))},
+                         or c["label"].startswith(("fused", "superc",
+                                                   "mix"))},
     }]
     print(f"total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

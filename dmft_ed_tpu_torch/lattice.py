@@ -1,6 +1,7 @@
 """Lattice layer of the DMFT loops — subset of dmft_ed_tpu/lattice.py:
-the semicircular DOS, the DOS-integral local Green's function, the k-sum
-local Green's function, the Weiss/Δ self-consistency, the kinetic energy
+the semicircular, flat, 2d-square and tabulated DOS (dos_bands), the
+DOS-integral local Green's function, the k-sum local Green's function
+(normal and Nambu), the Weiss/Δ self-consistency, the kinetic energy
 (each DOS form also in its superc Nambu form), the real-space and
 site-resolved functions of the inequivalent-site drivers (gloc_realspace,
 its full, superc and k-resolved forms, transport, the effective exchange,
@@ -45,6 +46,82 @@ def bethe_bands(norb: int, wband, le: int = 500, h0=None):
         db[a] = bethe_dos(e, wband[a]) * de
     return eb, db, h0
 
+
+def flat_dos(e, w: float) -> np.ndarray:
+    """Box DOS 1/(2W) on [-W, W] (SciFor dens_flat;
+    drivers/ed_hm_2bands_dos.f90:57-59 'flat')."""
+    e = np.asarray(e, dtype=float)
+    return np.where(np.abs(e) <= w, 1.0 / (2.0 * w), 0.0)
+
+
+def square2d_dos(e, ts: float = 1.0) -> np.ndarray:
+    """2d square-lattice DOS rho(e) = K(1-(e/4t)^2) / (2 pi^2 t), |e|<4t
+    (SciFor dens_2dsquare; drivers/ed_hm_square_dos.f90:40-45). The log
+    singularity at e=0 is integrable; the trapezoid grid never samples it
+    exactly for even Le."""
+    from scipy.special import ellipk
+    e = np.asarray(e, dtype=float)
+    m = 1.0 - (e / (4.0 * ts)) ** 2
+    out = np.zeros_like(e)
+    inside = m > 0
+    # clip m<1 so an exact e=0 grid point stays finite (K(m) ~ ln(16/(1-m))
+    # there; the singularity is integrable)
+    out[inside] = ellipk(np.minimum(m[inside], 1.0 - 1e-15)) \
+        / (2.0 * np.pi ** 2 * ts)
+    return out
+
+
+def dos_bands(norb: int, dos_model: str = "bethe", wband=1.0, le: int = 500,
+              h0=None, ts: float = 1.0, dos_file=None):
+    """(Ebands, Dbands, H0) for the DOS-integral Gloc drivers.
+
+    dos_model: 'bethe' | 'flat' | '2dsquare' | 'file'
+    (drivers/ed_hm_2bands_dos.f90:52-62, ed_hm_square_dos.f90:38-45).
+    'file': dos_file is one path or a list of per-orbital paths to
+    two-column (e, rho(e)) text files; weights get the trapezoid measure."""
+    wband = np.broadcast_to(np.asarray(wband, dtype=float), (norb,))
+    h0 = np.zeros(norb) if h0 is None else np.asarray(h0, dtype=float)
+    if dos_model == "bethe":
+        eb, db, _ = bethe_bands(norb, wband, le)
+        return eb, db, h0
+    if dos_model == "file":
+        files = [dos_file] * norb if isinstance(dos_file, (str, bytes)) \
+            else list(dos_file)
+        if len(files) != norb:
+            raise ValueError(f"dos_bands: {len(files)} DOS files for "
+                             f"{norb} orbitals")
+        data = [np.loadtxt(f) for f in files]
+        le = min(d.shape[0] for d in data)
+        eb = np.stack([d[:le, 0] for d in data])
+        db = np.stack([d[:le, 1] for d in data])
+        return eb, db * _trapz_weights(eb), h0
+    eb = np.zeros((norb, le))
+    db = np.zeros((norb, le))
+    for a in range(norb):
+        if dos_model == "2dsquare":
+            w = 4.0 * ts
+            e = np.linspace(-w, w, le)
+            rho = square2d_dos(e, ts)
+        elif dos_model == "flat":
+            e = np.linspace(-wband[a], wband[a], le)
+            rho = flat_dos(e, wband[a])
+        else:
+            raise ValueError(f"dos_bands: unknown dos_model {dos_model!r}")
+        eb[a] = e
+        db[a] = rho * _trapz_weights(e[None, :])[0]
+    return eb, db, h0
+
+
+def _trapz_weights(e: np.ndarray) -> np.ndarray:
+    """Trapezoid quadrature weights along the last axis: Σ w_i f(e_i) ==
+    trapz(f, e) — half-weight endpoints (a plain rectangle rule or
+    np.gradient double-weights DOS values at the band edges, biasing the
+    sum rule for DOS shapes that do not vanish there, e.g. 'flat')."""
+    w = np.empty_like(e)
+    w[..., 1:-1] = 0.5 * (e[..., 2:] - e[..., :-2])
+    w[..., 0] = 0.5 * (e[..., 1] - e[..., 0])
+    w[..., -1] = 0.5 * (e[..., -1] - e[..., -2])
+    return w
 
 
 def gloc_dos(cfg: EDConfig, ebands, dbands, h0, sigma, axis="mats"):
@@ -120,6 +197,57 @@ def gloc_superc_dos(cfg: EDConfig, ebands, dbands, h0, sigma, sigma_an,
             G[s, s, a, a] = np.sum(d * z2 / det, axis=1)
             F[s, s, a, a] = np.sum(d * sa[:, None] / det, axis=1)
     return G, F
+
+
+def gloc_hk_superc(cfg: EDConfig, hk, sigma, sigma_an, axis: str = "mats",
+                   chunk: int = 128, device="cuda"):
+    """Nambu local GF from a k-sum (dmft_gloc_matsubara superc over Hk;
+    the ed_ahm_square geometry): per (z, k) invert
+
+        M = [[(z+mu)I - H(k) - Σ(z),   -Σᴬ(z)            ],
+             [-Σᴬ(z),   (z-mu)I + H(k) + Σ̄(z)]]
+
+    with Σ̄(z) = conj(Σ) on the imaginary axis and +conj(Σ(-w+iη)) on the
+    real one. The hole block carries +H(k), not conj(H(k)), as the
+    reference's zeta(2,2)+Hk (ED_WRAP_GLOC.f90) and the JAX package
+    (dmft_ed_tpu/lattice.py:214-217) do. One batched complex
+    torch.linalg.inv over [chunk, Nk, 2Nso, 2Nso] per chunk of
+    frequencies on `device`, as gloc_hk.
+    hk: [Nso, Nso, Nk]; sigma/sigma_an: [Nspin, Nspin, Norb, Norb, L].
+    Returns (G, F) in the same layout."""
+    z = grids.z_mats(cfg) if axis == "mats" else grids.z_real(cfg)
+    ns_, no = cfg.nspin, cfg.norb
+    nso = ns_ * no
+    L = len(z)
+    sig = np.asarray(sigma, dtype=complex).transpose(4, 0, 2, 1, 3).reshape(
+        L, nso, nso)
+    san = np.asarray(sigma_an, dtype=complex).transpose(
+        4, 0, 2, 1, 3).reshape(L, nso, nso)
+    sig_bar = np.conj(sig) if axis == "mats" else np.conj(sig[::-1])
+    from .device import resolve
+    device = resolve(device)
+
+    def dev(a):
+        return torch.as_tensor(a, device=device)
+    hkT = dev(np.asarray(hk, dtype=complex)).permute(2, 0, 1)  # [Nk, nso, nso]
+    sig, sig_bar, san, zt = dev(sig), dev(sig_bar), dev(san), dev(z)
+    eye = torch.eye(nso, dtype=torch.complex128, device=device)
+    g, f = [], []
+    for i in range(0, L, chunk):
+        zc = zt[i:i + chunk][:, None, None, None]
+        blk11 = (zc + cfg.xmu) * eye - hkT[None] - sig[i:i + chunk, None]
+        blk22 = (zc - cfg.xmu) * eye + hkT[None] + sig_bar[i:i + chunk, None]
+        blk12 = (-san[i:i + chunk, None]).expand_as(blk11)
+        M = torch.cat([torch.cat([blk11, blk12], dim=-1),
+                       torch.cat([blk12, blk22], dim=-1)], dim=-2)
+        Gi = torch.mean(torch.linalg.inv(M), dim=1)          # k-sum
+        g.append(Gi[:, :nso, :nso])
+        f.append(Gi[:, :nso, nso:])
+
+    def layout(parts):
+        return torch.cat(parts).cpu().numpy().reshape(
+            L, ns_, no, ns_, no).transpose(1, 3, 2, 4, 0)
+    return layout(g), layout(f)
 
 
 def self_consistency_superc(cfg: EDConfig, gloc, floc, sigma, sigma_an,
