@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """The JAX package's CPU values that ``chip_smoke.py`` holds phases 6, 8,
-9, 10, 11, 12, 13 and 14 to.
+9, 10, 11, 12, 13, 14 and 15 to.
 
 * ``--case bethe``: the canonical Hubbard loop of phase 6
   (``dmft_ed_tpu.models.hm_bethe.run`` with the package defaults: Norb=1,
@@ -46,6 +46,18 @@
   package's modules), each in a directory of its own: the
   first solve's egs, dens and docc, the last solve's dens and docc, the
   iterations and the seconds (about 5 minutes in all).
+* ``--case lattice_drivers``: each of the fifteen lattice-driver cases of
+  phase 15(a) (``chip_smoke.LATTICE_CASES`` and the arrays
+  ``chip_smoke.lattice_case_args`` builds from its seed, run through the
+  JAX package's modules), each in a directory of its own: the values
+  ``chip_smoke.lattice_values`` reads (the first solve's egs per site,
+  each site's chi^2 after the first fit, the last solve's dens, docc and
+  phi; hartree_nano's dens and mag; nano_isoc_sq's chi0(q) and Chern
+  marker) and the seconds (about 3 minutes in all).
+* ``--case stack``: ``dmft_ed_tpu.models.ahm_stripe.run_stack`` on
+  ``chip_smoke.STACK_CFG`` (four superc layers, Nbath=9, one iteration;
+  phase 15(b)): the first solve's egs, dens, docc and phi per layer
+  (about 13 minutes and 4 GiB).
 
 The JAX package's nonsu2 G holds <<c_{b,s'}; c†_{a,s}>> at [s, s', a, b],
 the transpose of G0's convention (ROADMAP.md §3), which the port mends.
@@ -305,6 +317,45 @@ def run_drivers() -> dict:
     return dict(case="drivers", drivers=out)
 
 
+def run_lattice_drivers() -> dict:
+    import importlib
+    import dmft_ed_tpu.models as models
+    from chip_smoke import (LATTICE_CASES, lattice_case_args, lattice_values,
+                            record_site_solves)
+    from dmft_ed_tpu.config import EDConfig
+    from dmft_ed_tpu.lattice_solver import LatticeEDSolver
+    out = {}
+    for name, (modname, entry, cfg_kw, run_kw, _) in LATTICE_CASES.items():
+        os.mkdir(name)
+        os.chdir(name)
+        mod = importlib.import_module(f"dmft_ed_tpu.models.{modname}")
+        args, extra = lattice_case_args(name, models)
+        t0 = time.time()
+        with record_site_solves(LatticeEDSolver) as seen:
+            r = getattr(mod, entry)(EDConfig(**cfg_kw).validate(), *args,
+                                    log=lambda *a, **k: None, **run_kw,
+                                    **extra)
+        out[name] = dict(lattice_values(name, r, seen),
+                         seconds=time.time() - t0)
+        os.chdir("..")
+        print(name, json.dumps(out[name]), file=sys.stderr, flush=True)
+    return dict(case="lattice_drivers", drivers=out)
+
+
+def run_stack() -> dict:
+    from chip_smoke import STACK_CFG, record_site_solves
+    from dmft_ed_tpu.config import EDConfig
+    from dmft_ed_tpu.lattice_solver import LatticeEDSolver
+    from dmft_ed_tpu.models import ahm_stripe
+    cfg = EDConfig(**STACK_CFG).validate()
+    t0 = time.time()
+    with record_site_solves(LatticeEDSolver) as seen:
+        r = ahm_stripe.run_stack(cfg, log=lambda *a, **k: None)
+    return dict(case="stack", iterations=int(r.iterations),
+                uloc_sites=r.uloc_sites.tolist(), seconds=time.time() - t0,
+                **seen[0][1])
+
+
 def run_jz2() -> dict:
     import numpy as np
     from dmft_ed_tpu import bath
@@ -330,7 +381,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--case", choices=("bethe", "ahm", "nbath9", "soc", "bhz",
                                        "jz2", "flake", "soc_ineq",
-                                       "drivers"),
+                                       "drivers", "lattice_drivers",
+                                       "stack"),
                     required=True)
     ap.add_argument("--method", default="arpack")
     ap.add_argument("--nloop", type=int, default=None,
@@ -350,7 +402,9 @@ def main() -> int:
                "flake": lambda: run_flake(args.nloop or FLAKE_NLOOP),
                "soc_ineq": lambda: run_soc_ineq(
                    args.nloop or SOC_INEQ_NLOOP),
-               "drivers": run_drivers}[args.case]()
+               "drivers": run_drivers,
+               "lattice_drivers": run_lattice_drivers,
+               "stack": run_stack}[args.case]()
         os.chdir(REPO)
     print(json.dumps(out))
     return 0

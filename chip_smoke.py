@@ -102,7 +102,25 @@ when any is missing or any phase fails. Phases:
     the thick restart under ozaki5x7 of the (6,6) sector (``ed_sectors``):
     the mix terms keep it on the serial restart, with the kernel in every
     matvec; egs held to (b)'s native egs;
-5. printed last, after phases 6 to 14: a ``{"kernels": [...]}`` line, the
+15. the lattice drivers (ROADMAP.md §1 item 3), each part in a directory
+    of its own: (a) each of ``ahm_stripe.run`` and ``run_stack``,
+    ``haldane_sc``, ``ahm_disorder`` (a 3x3 flake with a seeded
+    disorder), ``kspace_afm.run_graphene``, ``hm_slab``, ``bhz_afm``
+    (afm2), ``bhz_edge``, ``bhz_edge_afm``, ``wsm_slab``, ``hartree_nano``,
+    ``nano_isoc_sq`` (with chi0(q) and the local Chern marker), ``blg``
+    (AA), ``tblg`` (synthetic hoppings) and ``twisted_blg`` at small depth
+    (Nbath 1-3, Lmats=200, 2 iterations), held to ``chip_reference.py
+    --case lattice_drivers``, with its seconds; (b) the ed_ahm_stackU
+    heterostructure at full width (``ahm_stripe.run_stack``: four
+    superconducting layers in two U domains, Nbath=9, Sz=0 of 184,756
+    states in 11 blocks, 144 k-points), one iteration with the package
+    defaults: the first solve per layer held to ``chip_reference.py
+    --case stack``, each layer's ground-state sectors solved again per
+    site, the stage seconds, the member matvecs at Sz=0, the torch calls
+    of one matvec (eager and graphed) and the peak memory; the superc
+    and lattice paths run ``native``, so phase 15 launches no digit
+    matmul;
+5. printed last, after phases 6 to 15: a ``{"kernels": [...]}`` line, the
    card line, and as the last line ``{"ok": true, "device": {...}}``.
 
 Phases 10-12 print their seconds, the solver's stage timers, the matvecs
@@ -117,7 +135,7 @@ Krylov vector of the (6,6) sector (the shape of every product phase
 14(c)'s Lanczos steps make), on both sides.
 
 Every path runs with the launch counts reset just before it and read just
-after it. ``--phases 10,12`` (for development; any of 10-14) runs phase
+after it. ``--phases 10,12`` (for development; any of 10-15) runs phase
 1 and the listed phases only, and prints no result line.
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -489,6 +507,349 @@ TOL_NBANDS_DENS = 1e-6
 # that sector, which phase 7's sector cut left as the only ozaki5x7 run
 # of the serial restart: egs to TOL_EGS
 HUND_KRYLOV = 40
+
+
+# Phase 15: the lattice drivers (ROADMAP.md §1 item 3).
+# (a) each new driver on the card at small depth (Nbath 1-3, beta=50,
+# Lmats=200, nk <= 8, 2 iterations, the fits to a tight stop), held to the
+# JAX package's CPU run of the same case (python3 chip_reference.py --case
+# lattice_drivers): the first solve's egs (per site, before any fit); dens
+# and docc after two iterations by the backend-parity contract
+# (PERF_NOTES.md), phi for the superc drivers; hartree_nano (one-body)
+# dens and mag; nano_isoc_sq's chi0(q) and local Chern marker after its
+# loop's first iteration. Depth cut: ahm_disorder runs one iteration (its
+# two took 94.5 s of phase 15's 200.3 s on an H100, its nine sites' joint
+# fits at 1,000 L-BFGS-B steps each), so its dens, docc and phi are the
+# first solve's.
+LATTICE_BASE = dict(DRIVER_BASE, nloop=2)
+LATTICE_SC = dict(LATTICE_BASE, norb=1, nspin=1, ed_mode="superc",
+                  uloc=(-2.0,))
+LATTICE_SPIN = dict(LATTICE_BASE, norb=1, nspin=2, uloc=(3.0,))
+LATTICE_BHZ = dict(LATTICE_BASE, norb=2, nspin=2, nbath=1, uloc=(2.0, 2.0),
+                   ust=1.0, jh=0.5)
+# name: (module, entry point, config, run() keywords, geometry); geometry
+# names the arrays the case builds from its seed (lattice_case_args).
+# nano_isoc_sq runs the 3x3 torus: the 4x4 torus has zero modes at
+# k = (0, pi), (pi, 0) on the Fermi level, where the marker's occupied
+# projector is not defined (the two packages' markers part by 5.7e-7
+# there on the CPU).
+LATTICE_CASES = {
+    "ahm_stripe": ("ahm_stripe", "run", dict(LATTICE_SC, nbath=3),
+                   dict(lx=2, ly=2, nk=6), None),
+    "ahm_stack": ("ahm_stripe", "run_stack",
+                  dict(LATTICE_SC, nbath=2, uloc=(-3.0,)),
+                  dict(nlayers=4, n_umin=2, nk=4, nkz=4), None),
+    "haldane_sc": ("haldane_sc", "run", dict(LATTICE_SC, nbath=3,
+                                             uloc=(-3.0,)),
+                   dict(nk=8, t1=0.5, t2=0.1, phi=1.5707963267948966,
+                        mass=0.2), None),
+    "ahm_disorder": ("ahm_disorder", "run",
+                     dict(LATTICE_SC, nbath=2, nloop=1), {},
+                     "disordered_flake"),
+    "kspace_afm": ("kspace_afm", "run_graphene",
+                   dict(LATTICE_SPIN, nbath=2), dict(nk=8, t=0.5), None),
+    "hm_slab": ("hm_slab", "run", dict(LATTICE_BASE, norb=1, nbath=3,
+                                       uloc=(2.0,)),
+                dict(nlayers=4, nk=8), None),
+    "bhz_afm": ("bhz_afm", "run", LATTICE_BHZ, dict(cell="afm2", nk=6),
+                None),
+    "bhz_edge": ("bhz_edge", "run", LATTICE_BHZ, dict(ly=4, nkx=8), None),
+    "bhz_edge_afm": ("bhz_edge_afm", "run", LATTICE_BHZ,
+                     dict(ly=3, nkx=8), None),
+    "wsm_slab": ("wsm_slab", "run", LATTICE_BHZ, dict(ly=4, nk=6), None),
+    "hartree_nano": ("hartree_nano", "run",
+                     dict(LATTICE_BASE, norb=1, nspin=2, uloc=(3.0,),
+                          nloop=200, dmft_error=1e-12),
+                     dict(wmixing=0.5), "staggered_flake"),
+    "nano_isoc_sq": ("nano_isoc_sq", "run",
+                     dict(LATTICE_SPIN, nbath=2, nloop=1),
+                     dict(nx=3, t=1.0, lam=0.2, chern=True), None),
+    "blg": ("blg", "run", dict(LATTICE_BASE, norb=1, nbath=3, uloc=(2.0,)),
+            dict(stacking="AA", nk=8, bias=0.2), None),
+    "tblg": ("tblg", "run", dict(LATTICE_BASE, norb=1, nbath=2,
+                                 uloc=(2.0,)),
+             dict(nk=6), "synthetic_hopping"),
+    "twisted_blg": ("twisted_blg", "run",
+                    dict(LATTICE_BASE, norb=1, nbath=1, uloc=(2.0,)),
+                    dict(nk=2), None),
+}
+LATTICE_SEED = 17
+# the JAX package's CPU run of each case (python3 chip_reference.py --case
+# lattice_drivers, about 3 minutes on the CPU): the iterations, the first
+# solve's egs per site, each site's chi^2 after the first fit, the last
+# solve's dens, docc and phi per site; hartree_nano's dens and mag;
+# nano_isoc_sq's chi0(q) and Chern marker
+LATTICE_JAX = {
+    'ahm_stripe': dict(
+        iterations=2,
+        first_egs=[-5.494108982644975, -5.494108982644975, -5.429764016495174,
+                   -5.429764016495174],
+        chi2=[2.283425691e-05, 2.283425696e-05, 1.914021208e-05,
+              1.914021173e-05],
+        dens=[[1.0000401436867867], [0.9999790910938801],
+              [1.0000036924648266], [1.0000283932063347]],
+        docc=[[0.4143908752635962], [0.41436033021657104],
+              [0.3441499679490213], [0.34416231948019277]],
+        phi=[[0.1675334117562245], [0.16753362145769607],
+             [0.08357528829351263], [0.0835753311389903]]),
+    'ahm_stack': dict(
+        iterations=2,
+        first_egs=[-4.741883201432243, -4.741883201432243,
+                   -5.0448585401003685, -5.0448585401003685],
+        chi2=[2.988500054e-06, 2.988500054e-06, 7.720789326e-06,
+              7.720789516e-06],
+        dens=[[0.999999987692599], [0.9999999876923998], [1.0000680831063034],
+              [1.0000679200158045]],
+        docc=[[0.38014064771267697], [0.3801406516949276],
+              [0.42658128707844784], [0.42658113953653914]],
+        phi=[[0.3357007923095682], [0.3357007994101884], [0.3986835847122867],
+             [0.3986835526163064]]),
+    'haldane_sc': dict(
+        iterations=2,
+        first_egs=[-5.434513154373611, -5.834513154373613],
+        chi2=[8.680201852e-07, 8.680203687e-07],
+        dens=[[0.26719779061624077], [1.7328052461726395]],
+        docc=[[0.04787818524336767], [0.7806820739642856]],
+        phi=[[0.012831888464850616], [0.01283492901090788]]),
+    'ahm_disorder': dict(
+        iterations=1,
+        first_egs=[-4.801757949332179, -5.480358782677736, -4.830252111057587,
+                   -5.086192534957441, -5.377393567136395, -5.052552898900522,
+                   -4.972384048420136, -4.824498282089912,
+                   -4.811907972042965],
+        chi2=[4.413302449e-05, 2.547800256e-05, 4.440574212e-05,
+              7.275781119e-06, 1.51162898e-05, 3.198849859e-05,
+              6.288564294e-06, 4.506207474e-05, 4.178855692e-05],
+        dens=[[0.09028056443335664], [1.9093853331118302],
+              [0.11005446156741414], [1.8964732739445165],
+              [1.9063127739405556], [1.8951582156485955],
+              [1.8915423596097976], [0.1050585758440714],
+              [0.09661057530076106]],
+        docc=[[0.0036412474388853523], [0.9130567971699535],
+              [0.006210537930551547], [0.9014859849504986],
+              [0.9102697981447552], [0.9003474711116318],
+              [0.8973591811720407], [0.005220151839850799],
+              [0.0042431389907088566]],
+        phi=[[0.004080177206316704], [0.004159834981731947],
+             [0.026413354327893268], [0.011329853796492095],
+             [0.005021512802987349], [0.013156817933558052],
+             [0.021157719255405882], [0.013502388504273433],
+             [0.006138283615887752]]),
+    'kspace_afm': dict(
+        iterations=2,
+        first_egs=[-5.050943369848078, -5.05094336984808],
+        chi2=[1.269711804e-06, 1.269711803e-06],
+        dens=[[0.9999999986246622], [0.9999999975659754]],
+        docc=[[0.07055187087631881], [0.07055187176716897]],
+        phi=[[0.0], [0.0]]),
+    'hm_slab': dict(
+        iterations=2,
+        first_egs=[-5.493486219854924, -5.493486219854924],
+        chi2=[2.426885117e-05, 3.1158319e-05],
+        dens=[[0.9999999828476271], [1.0000000041263388]],
+        docc=[[0.1038806602346834], [0.11236181084017197]],
+        phi=[[0.0], [0.0]]),
+    'bhz_afm': dict(
+        iterations=2,
+        first_egs=[-4.901772470890918, -4.901772470890913],
+        chi2=[0.01975180142, 0.01975180142],
+        dens=[[0.3031960665141334, 1.6968039334695366], [0.303196062991905,
+              1.6968039370792165]],
+        docc=[[3.356176828287845e-31, 0.6968039334695353],
+              [1.1543262958009481e-34, 0.6968039370792171]],
+        phi=[[0.0, 0.0], [0.0, 0.0]]),
+    'bhz_edge': dict(
+        iterations=2,
+        first_egs=[-4.895288797254227, -4.895288797254227],
+        chi2=[0.003793426123, 0.001539659409],
+        dens=[[0.5036712341479554, 1.4963287658521263], [0.5347652756064821,
+              1.4652347243935633]],
+        docc=[[0.027938972584905533, 0.5242677384370087],
+              [0.03659093853263331, 0.5018256629261846]],
+        phi=[[0.0, 0.0], [0.0, 0.0]]),
+    'bhz_edge_afm': dict(
+        iterations=2,
+        first_egs=[-4.901772470890916, -4.901772470890916],
+        chi2=[0.005191295552, 0.01786132845],
+        dens=[[0.4132068800953469, 1.5867931250024174], [0.28539287593624046,
+              1.7146071240651506]],
+        docc=[[0.015318509101516997, 0.6021116331652072],
+              [6.718817128549727e-31, 0.7146071240651503]],
+        phi=[[0.0, 0.0], [0.0, 0.0]]),
+    'wsm_slab': dict(
+        iterations=2,
+        first_egs=[-5.947100915285307, -5.947100915285307],
+        chi2=[0.001030857032, 0.0002577177683],
+        dens=[[0.2590709537247928, 1.7409290462874758], [0.2981575464893189,
+              1.7018424535083823]],
+        docc=[[0.010544139730331574, 0.7514731860166718],
+              [0.014941709806354292, 0.7167841633149818]],
+        phi=[[0.0, 0.0], [0.0, 0.0]]),
+    'hartree_nano': dict(
+        iterations=55,
+        dens=[[0.9507266027626806, 0.049273397237319355],
+              [0.07011057271841786, 0.9298894272815825], [0.9298894272815821,
+              0.0701105727184179], [0.0492733972373193, 0.9507266027626806],
+              [0.07011057271841784, 0.9298894272815824], [0.9147001272548039,
+              0.08529987274519593], [0.08529987274519593, 0.9147001272548045],
+              [0.9298894272815826, 0.07011057271841792], [0.9298894272815819,
+              0.07011057271841795], [0.08529987274519596, 0.9147001272548041],
+              [0.9147001272548045, 0.08529987274519592], [0.07011057271841796,
+              0.9298894272815824], [0.049273397237319334, 0.9507266027626805],
+              [0.9298894272815825, 0.07011057271841792], [0.07011057271841797,
+              0.9298894272815822], [0.9507266027626797,
+              0.049273397237319334]],
+        mag=[0.9014532055253612, -0.8597788545631646, 0.8597788545631642,
+             -0.9014532055253613, -0.8597788545631646, 0.829400254509608,
+             -0.8294002545096086, 0.8597788545631647, 0.8597788545631639,
+             -0.8294002545096082, 0.8294002545096086, -0.8597788545631645,
+             -0.9014532055253611, 0.8597788545631646, -0.8597788545631642,
+             0.9014532055253603]),
+    'nano_isoc_sq': dict(
+        iterations=1,
+        first_egs=[-5.0419084957603415],
+        chi2=[0.0002850562479],
+        dens=[[1.0000000000000002]],
+        docc=[[0.03906806968154379]],
+        phi=[[0.0]],
+        chi0=[[0.11714630962796896, 0.13135685555843155, 0.13135685555843155,
+              0.13265386277042726, 0.14855679581055561, 0.14855679581055561,
+              0.13265386277042726, 0.14855679581055561, 0.14855679581055561],
+              [0.11714630962796892, 0.13135685555843146, 0.13135685555843146,
+              0.13265386277042718, 0.1485567958105555, 0.1485567958105555,
+              0.13265386277042718, 0.1485567958105555, 0.1485567958105555]],
+        chern=[2.5745126702253103e-16, -1.2724676473665479e-17,
+               6.757320186813245e-16, 2.892385646963191e-15,
+               -1.565373720662023e-16, 1.5706837820724027e-15,
+               -1.2320903942538782e-15, 8.37430565264286e-16,
+               -2.4803065003015244e-15]),
+    'blg': dict(
+        iterations=2,
+        first_egs=[-5.395199462081389, -5.395199462081389, -5.595199462081387,
+                   -5.595199462081387],
+        chi2=[6.472276151e-06, 6.472276151e-06, 6.472276151e-06,
+              6.472276151e-06],
+        dens=[[0.9850285592665633], [0.9850285491642656], [1.014971415355736],
+              [1.014971427265238]],
+        docc=[[0.19816557824605394], [0.19816557099626972],
+              [0.21313701324501966], [0.21313701455826722]],
+        phi=[[0.0], [0.0], [0.0], [0.0]]),
+    'tblg': dict(
+        iterations=2,
+        first_egs=[-4.344318836531884, -5.344318836531886, -4.344318836531884,
+                   -5.344318836531886],
+        chi2=[0.0002999889498, 0.0001972009823, 0.0002999889498,
+              0.0001972009823],
+        dens=[[0.8906468575101008], [1.1046520930007804],
+              [0.8906468575100988], [1.1046520930007795]],
+        docc=[[0.16721674576838133], [0.27676065241035247],
+              [0.16721674576838094], [0.27676065241035225]],
+        phi=[[0.0], [0.0], [0.0], [0.0]]),
+    'twisted_blg': dict(
+        iterations=2,
+        first_egs=[-2.0615528128088307, -2.0615528128088307,
+                   -2.0615528128088307, -2.0615528128088307,
+                   -2.0615528128088307, -2.0615528128088307,
+                   -2.0615528128088307, -2.0615528128088307,
+                   -2.0615528128088307, -2.0615528128088307,
+                   -2.0615528128088307, -2.0615528128088307,
+                   -2.0615528128088307, -2.0615528128088307,
+                   -2.0615528128088307, -2.0615528128088307,
+                   -2.0615528128088307, -2.0615528128088307,
+                   -2.0615528128088307, -2.0615528128088307,
+                   -2.0615528128088307, -2.0615528128088307,
+                   -2.0615528128088307, -2.0615528128088307,
+                   -2.0615528128088307, -2.0615528128088307,
+                   -2.0615528128088307, -2.0615528128088307],
+        chi2=[0.0003716653329, 0.000306051502, 0.0003054598039,
+              0.0003587584265, 0.0003707592152, 0.0003731509587,
+              0.0003064973982, 0.0003052240327, 0.0003711740947,
+              0.0003723075333, 0.0003549406912, 0.0003061536476,
+              0.000372273453, 0.0003061444737, 0.0003536409595,
+              0.0003711478974, 0.0003713235073, 0.000304544839,
+              0.0003715750829, 0.000304946163, 0.0003057252059,
+              0.0003723270411, 0.000304761242, 0.0003700531726,
+              0.0003700619628, 0.0003565614825, 0.0003064836744,
+              0.0003053156284],
+        dens=[[1.0408310855987608], [1.0404321025212542],
+              [1.0400831780542747], [1.040254934776038], [1.0408305497503287],
+              [1.0413149994049458], [1.040463464672364], [1.0400127376068986],
+              [1.0407210030361815], [1.0411073744798238],
+              [1.0394602811282339], [1.0401859992828144], [1.041072404155127],
+              [1.0403543497401784], [1.0391730362892337],
+              [1.0411026424518686], [1.0410765492455876],
+              [1.0400418537798264], [1.0410879006598728], [1.040103754985061],
+              [1.0403295539335504], [1.0413084869876281],
+              [1.0401934615291923], [1.040575241027902], [1.0407516291608927],
+              [1.0400003210832485], [1.0406335992045341],
+              [1.0402942786910767]],
+        docc=[[0.2507704635511745], [0.2507112092064146],
+              [0.2505342651878698], [0.2505498571974616],
+              [0.25077048559271026], [0.2510152502725649],
+              [0.25072617162874883], [0.25049987082510883],
+              [0.2507155197103096], [0.25091084347328885],
+              [0.25015089528930523], [0.2505864028869515],
+              [0.25089201411309237], [0.2506735177366838],
+              [0.2500084145763216], [0.2509100217544063],
+              [0.25089635723662007], [0.2505146792818701],
+              [0.250901480598305], [0.2505470803910578],
+              [0.25066133135187163], [0.25101331244955727],
+              [0.2505912494466182], [0.25064335249162273],
+              [0.25073228799687647], [0.2504241282484358],
+              [0.2508132982291159], [0.2506422911036503]],
+        phi=[[0.0], [0.0], [0.0], [0.0], [0.0], [0.0], [0.0], [0.0], [0.0],
+             [0.0], [0.0], [0.0], [0.0], [0.0], [0.0], [0.0], [0.0], [0.0],
+             [0.0], [0.0], [0.0], [0.0], [0.0], [0.0], [0.0], [0.0], [0.0],
+             [0.0]]),
+}
+TOL_LATTICE_PHI = 1e-4
+# each site's chi^2 after the first joint fit, against the JAX package's,
+# relative to the largest site's (the scale of the summed objective the
+# fit minimises)
+TOL_FIT_CHI2 = 5e-3
+# The superc drivers' second solves follow their first joint anomalous
+# fits, which walk a flat valley (tests/test_torch_drivers_superc_lattice.py)
+# and here stop at the L-BFGS-B step limit (cg_niter=1000) with chi^2 up
+# to 2.1e-1 apart relative to the largest site's (ahm_disorder; 7.6e-2
+# ahm_stack; the port on the CPU): printed, not held. At two iterations
+# ahm_disorder's nine sites ended 5.2e-3 (dens), 4.8e-3 (docc) and 2.2e-3
+# (phi) off the JAX package's on an H100 (5.0e-3, 4.1e-3, 2.7e-3 for the
+# port on the CPU), and ahm_stack 9.1e-4 in phi on the CPU, where the
+# normal-mode drivers end within 1e-7. Held: the first solve as for every
+# driver; dens, docc and phi 1e-2 after two iterations.
+TOL_LATTICE_SC = 1e-2
+TOL_HARTREE = 1e-10
+TOL_CHI0 = 1e-8
+# (b) full width: the ed_ahm_stackU heterostructure (ahm_stripe.run_stack)
+# with the driver's stack defaults (4 layers, U_min = U/2 on the first 2,
+# nk=6, nkz=4: 144 k-points) at phase 9's superc width, Nbath=9 (Sz=0:
+# 184,756 states in 11 blocks), one iteration, the package defaults
+# (arpack, native). Its first solve is held to the JAX package's CPU
+# solve of the same config (python3 chip_reference.py --case stack), and
+# each layer's ground-state sectors are solved again per site.
+STACK_CFG = dict(norb=1, nspin=1, nbath=9, ed_mode="superc", uloc=(-3.0,),
+                 deltasc=0.1, beta=100.0, lmats=1024, lreal=256, nloop=1,
+                 dmft_error=1e-12, ed_verbose=0)
+TOL_STACK_EGS = 1e-8
+TOL_STACK_OBS = 1e-6
+# the JAX package's CPU solve of STACK_CFG (python3 chip_reference.py
+# --case stack; 805 s on the CPU): the first solve per layer
+STACK_JAX = {'egs': [-11.372637028585594,
+                     -11.372637028585567,
+                     -11.527131126028321,
+                     -11.527131126028237],
+             'dens': [[1.0000000000000042],
+                      [1.000000000000008],
+                      [0.9999999999999771],
+                      [0.9999999999999947]],
+             'docc': [[0.32357712316034715],
+                      [0.32357712316034853],
+                      [0.3797120424903412],
+                      [0.3797120424903512]],
+             'phi': [[0.12493229958392171],
+                     [0.12493229958392926],
+                     [0.19204422585475894],
+                     [0.19204422585475334]]}
 
 
 def card_line() -> str:
@@ -1767,6 +2128,33 @@ def run_driver(name: str, device):
                                device=device, **run_kw)
 
 
+def site_values(results) -> dict:
+    """Per-site (egs, dens, docc, phi) of a LatticeEDSolver.solve's results
+    (either package); dens, docc and phi as nested lists per site."""
+    return dict(egs=[float(r.egs) for r in results],
+                dens=[r.observables.dens.tolist() for r in results],
+                docc=[r.observables.docc.tolist() for r in results],
+                phi=[r.observables.phisc.tolist() for r in results])
+
+
+@contextlib.contextmanager
+def record_site_solves(cls):
+    """While active, every cls.solve (a LatticeEDSolver class of either
+    package) appends (the solver, site_values of its results, the baths it
+    solved) to the yielded list."""
+    seen, orig = [], cls.solve
+
+    def solve(self, baths, batched=True):
+        out = orig(self, baths, batched=batched)
+        seen.append((self, site_values(out), baths.copy()))
+        return out
+    cls.solve = solve
+    try:
+        yield seen
+    finally:
+        cls.solve = orig
+
+
 def drivers_small(device):
     """Phase 14(a): every DRIVER_CASES driver on the card, each in a
     directory of its own: seconds, the first solve's egs and the last
@@ -1806,6 +2194,203 @@ def drivers_small(device):
     if bad:
         raise AssertionError("drivers: " + "; ".join(bad))
     return {n: fn.launches for n, fn in KERNELS.items()}
+
+
+def lattice_case_args(name: str, models):
+    """(positional arguments, extra keywords) of LATTICE_CASES[name]'s
+    entry point, built from LATTICE_SEED with `models` (either package's
+    models package): a 3x3 flake with a uniform disorder on [-0.5, 0.5]
+    (ahm_disorder), a 4x4 flake at Nspin=2 with a staggered seed and every
+    site its own class (hartree_nano), synthetic Wannier hoppings
+    (tblg)."""
+    import numpy as np
+    geom = LATTICE_CASES[name][4]
+    rng = np.random.default_rng(LATTICE_SEED)
+    if geom == "disordered_flake":
+        hij = models.nano.square_flake_hij(3, 3, 0.5)[0]
+        return (hij, rng.uniform(-0.5, 0.5, hij.shape[0])), {}
+    if geom == "staggered_flake":
+        h1 = models.nano.square_flake_hij(4, 4, 0.5)[0]
+        n = h1.shape[0]
+        seed = 0.2 * np.array([(-1.0) ** ((i % 4) + (i // 4))
+                               for i in range(n)])
+        return (np.kron(h1, np.eye(2)), np.arange(n)), dict(seed_mag=seed)
+    if geom == "synthetic_hopping":
+        return models.tblg.synthetic_hopping(LATTICE_SEED), {}
+    return (), {}
+
+
+def lattice_values(name: str, r, seen) -> dict:
+    """What phase 15(a) holds of a LATTICE_CASES run (either package), read
+    in the run's directory: the iterations, the first solve's egs per site,
+    each site's chi^2 after the first joint fit, the last solve's dens,
+    docc and phi per site (seen: record_site_solves' list); hartree_nano's
+    dens and mag; nano_isoc_sq's chi0(q) and local Chern marker too."""
+    import glob
+    import numpy as np
+    if name == "hartree_nano":
+        return dict(iterations=int(r.iterations), dens=r.dens.tolist(),
+                    mag=r.mag.tolist())
+    out = dict(iterations=int(getattr(r, "dmft", r).iterations),
+               first_egs=seen[0][1]["egs"],
+               chi2=[float(np.loadtxt(f, ndmin=2)[0, 0]) for f in sorted(
+                   glob.glob("chi2fit_results_ineq*.ed"))],
+               dens=seen[-1][1]["dens"], docc=seen[-1][1]["docc"],
+               phi=seen[-1][1]["phi"])
+    if name == "nano_isoc_sq":
+        out.update(chi0=r.chi0.tolist(), chern=r.chern.tolist())
+    return out
+
+
+def lattice_drivers_small(device):
+    """Phase 15(a): every LATTICE_CASES driver on the card, each in a
+    directory of its own, held to LATTICE_JAX: the first solve's egs per
+    site, dens and docc after the loop, phi of the superc drivers;
+    hartree_nano's dens and mag; nano_isoc_sq's chi0(q) and Chern marker.
+    Returns the launches per kernel over all of them."""
+    import importlib
+    import numpy as np
+    import torch
+    from dmft_ed_tpu_torch import models
+    from dmft_ed_tpu_torch.config import EDConfig
+    from dmft_ed_tpu_torch.kernels import KERNELS, reset_launches
+    from dmft_ed_tpu_torch.lattice_solver import LatticeEDSolver
+    bad, here = [], os.getcwd()
+    reset_launches()
+    for name, (modname, entry, cfg_kw, run_kw, _) in LATTICE_CASES.items():
+        os.mkdir(name)
+        os.chdir(name)
+        mod = importlib.import_module(f"dmft_ed_tpu_torch.models.{modname}")
+        args, extra = lattice_case_args(name, models)
+        t0 = time.time()
+        with record_site_solves(LatticeEDSolver) as seen:
+            r = getattr(mod, entry)(EDConfig(**cfg_kw).validate(), *args,
+                                    log=lambda *a, **k: None, device=device,
+                                    **run_kw, **extra)
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+        got, ref = lattice_values(name, r, seen), LATTICE_JAX[name]
+        os.chdir(here)
+        tol = dict(first_egs=TOL_DRIVER_EGS, dens=TOL_DRIVER_DENS,
+                   docc=TOL_DRIVER_DOCC, phi=TOL_LATTICE_PHI,
+                   chi2=TOL_FIT_CHI2, mag=TOL_HARTREE, chi0=TOL_CHI0,
+                   chern=TOL_CHI0)
+        if name == "hartree_nano":
+            tol["dens"] = TOL_HARTREE
+        if cfg_kw.get("ed_mode") == "superc":
+            tol.update(dens=TOL_LATTICE_SC, docc=TOL_LATTICE_SC,
+                       phi=TOL_LATTICE_SC, chi2=None)
+        d = {k: float(np.max(np.abs(np.subtract(got[k], ref[k]))))
+             for k in got if k != "iterations"}
+        if "chi2" in d:     # relative to the summed objective's scale
+            d["chi2"] /= max(ref["chi2"])
+        print(f"{name}: {got['iterations']} iterations in {dt:.3f} s; "
+              "against the JAX package's: " + " ".join(
+                  f"|d {k}|={v:.3e} " + ("(not held)" if tol[k] is None
+                                         else f"(bound {tol[k]:g})")
+                  for k, v in d.items()))
+        if got["iterations"] != ref["iterations"]:
+            bad.append(f"{name}: {got['iterations']} iterations")
+        if not all(np.all(np.isfinite(np.asarray(v, dtype=float)))
+                   for k, v in got.items()):
+            bad.append(f"{name}: non-finite results")
+        bad += [f"{name}: {k}" for k in d
+                if tol[k] is not None and not d[k] <= tol[k]]
+    if bad:
+        raise AssertionError("lattice drivers: " + "; ".join(bad))
+    return {n: fn.launches for n, fn in KERNELS.items()}
+
+
+def stack_full(device):
+    """Phase 15(b): ahm_stripe.run_stack on STACK_CFG, one iteration: the
+    stage seconds, the member matvecs at Sz=0 and in all, the torch calls
+    of one Sz=0 matvec (eager and graphed), the Nambu k-sum's seconds, the
+    peak device memory; the first solve per layer against STACK_JAX; each
+    layer's ground-state sectors solved again per site (ed_sectors over
+    the sectors_list_ineq####.restart files the batched solve wrote):
+    egs to TOL_SITES_EGS. Returns the launches per kernel."""
+    import numpy as np
+    import torch
+    from dmft_ed_tpu_torch.bath import unpack_bath
+    from dmft_ed_tpu_torch.config import EDConfig
+    from dmft_ed_tpu_torch.kernels import KERNELS, reset_launches
+    from dmft_ed_tpu_torch.lattice_solver import LatticeEDSolver
+    from dmft_ed_tpu_torch.models import ahm_stripe
+    from dmft_ed_tpu_torch.sectors import sector_table
+    from dmft_ed_tpu_torch.solver import EDSolver
+    cfg = EDConfig(**STACK_CFG).validate()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.time()
+    with count_matvecs() as mv, \
+            record_site_solves(LatticeEDSolver) as seen:
+        r = ahm_stripe.run_stack(cfg, log=lambda *a, **k: None,
+                                 device=device)
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    launches = {n: fn.launches for n, fn in KERNELS.items()}
+    peak = _peak_gib()
+    ls, got, baths0 = seen[0]
+    sec = max(sector_table(cfg).sectors, key=lambda x: x.dim)
+    calls, ms, ms_g, nmix = matvec_calls(
+        ls.cfgs[-1], sec, unpack_bath(cfg, baths0[-1], ls.solvers[-1].mask),
+        ls.solvers[-1].hloc, device)
+    ref = STACK_JAX
+    d = {k: float(np.max(np.abs(np.subtract(got[k], ref[k]))))
+         for k in ("egs", "dens", "docc", "phi")}
+    tol = dict(egs=TOL_STACK_EGS, dens=TOL_STACK_OBS, docc=TOL_STACK_OBS,
+               phi=TOL_STACK_OBS)
+    print(f"U-stack Nbath={cfg.nbath} superc, {len(got['egs'])} layers U="
+          f"{r.uloc_sites.tolist()}: {r.iterations} iteration in {dt:.3f} s"
+          f"\n  stages {_stages(ls.timers)}\n  largest sector {sec.qn} dim "
+          f"{sec.dim}: {mv.get(sec.dim, 0)} member matvecs, {nmix} mix "
+          f"entries, {calls} torch calls, {ms:.3f} ms eager and {ms_g:.3f} "
+          f"ms graphed per matvec; {sum(mv.values())} matvecs in all; peak "
+          f"device memory {peak:.3f} GiB; launches={launches}\n  first "
+          f"solve egs={got['egs']} dens={got['dens']} docc={got['docc']} "
+          f"phi={got['phi']}; against the JAX package's: " + " ".join(
+              f"|d {k}|={v:.3e} (bound {tol[k]:g})" for k, v in d.items()))
+    bad = [f"{k} off the JAX package's" for k in d if not d[k] <= tol[k]]
+    # each layer again, per site, over its ground-state sectors
+    d_site = []
+    t1 = time.time()
+    for i, s in enumerate(ls.solvers):
+        one = EDSolver(ls.cfgs[i].replace(ed_sectors=True,
+                                          ed_sectors_shift=0), s.hloc,
+                       suffix=s.suffix, log=lambda m: None, device=device)
+        rs = one.solve(baths0[i])
+        d_site.append(abs(rs.egs - got["egs"][i]))
+    torch.cuda.synchronize()
+    print(f"  per-site solves of each layer's ground-state sectors in "
+          f"{time.time() - t1:.3f} s: max|d egs|={max(d_site):.3e} (bound "
+          f"{TOL_SITES_EGS:g})")
+    if not max(d_site) <= TOL_SITES_EGS:
+        bad.append("batched and per-site egs disagree")
+    if not all(np.all(np.isfinite(x)) for x in (r.dens, r.docc, r.phisc,
+                                                r.baths)):
+        bad.append("non-finite results")
+    if bad:
+        raise AssertionError("U-stack Nbath=9: " + "; ".join(bad))
+    return launches
+
+
+def lattice_phases(device, work):
+    """Phase 15 (a)-(b), each in a directory of its own. Returns the
+    launches per kernel of each path."""
+    out = {}
+    t15 = time.time()
+    for part in ("a", "b"):
+        os.mkdir(f"phase15{part}")
+        os.chdir(f"phase15{part}")
+        t0 = time.time()
+        if part == "a":
+            out["lattice_drivers_native"] = lattice_drivers_small(device)
+        else:
+            out["stack_nbath9_native"] = stack_full(device)
+        print(f"phase 15({part}): {time.time() - t0:.3f} s")
+        os.chdir(work)
+    print(f"phase 15: {time.time() - t15:.3f} s")
+    return out
 
 
 def nbands_full(device):
@@ -2040,12 +2625,14 @@ def nonsu2_phases(device, want, work):
 
 
 def dev_phases(device, want, work):
-    """--phases: the listed phases of 10-14 only; no result line."""
+    """--phases: the listed phases of 10-15 only; no result line."""
     nonsu2_phases(device, want, work)
     if want(13):
         flake_phases(device, work)
     if want(14):
         driver_phases(device, work)
+    if want(15):
+        lattice_phases(device, work)
     print("chip_smoke: development run of some phases only; no result")
     return 0
 
@@ -2127,6 +2714,8 @@ def main() -> int:
             launches_13 = flake_phases(device, work)
             # ---- phase 14: the single-site drivers, the Hund impurity
             launches_14 = driver_phases(device, work)
+            # ---- phase 15: the lattice drivers, the superc U-stack
+            launches_15 = lattice_phases(device, work)
         finally:
             os.chdir(REPO)
 
@@ -2157,7 +2746,8 @@ def main() -> int:
             "bhz_loop_native": launches_bhz["digit_matmul"],
             "spin_orbit_impurity_native": launches_jz["digit_matmul"],
             **{k: v["digit_matmul"] for k, v in launches_13.items()},
-            **{k: v["digit_matmul"] for k, v in launches_14.items()}},
+            **{k: v["digit_matmul"] for k, v in launches_14.items()},
+            **{k: v["digit_matmul"] for k, v in launches_15.items()}},
         "ms_per_class": {c["label"]: c["ms"] for c in cases
                          if "embedded" in c["label"]
                          or c["label"].startswith(("fused", "superc",

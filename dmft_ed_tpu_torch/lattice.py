@@ -4,15 +4,18 @@ DOS-integral local Green's function, the k-sum local Green's function
 (normal and Nambu), the Weiss/Δ self-consistency, the kinetic energy
 (each DOS form also in its superc Nambu form), the real-space and
 site-resolved functions of the inequivalent-site drivers (gloc_realspace,
-its full, superc and k-resolved forms, transport, the effective exchange,
-kinetic_energy_realspace) and the convergence monitor (DMFT_Tools'
+its full, superc and k-resolved forms, the k-resolved Nambu form
+gloc_hk_lattice_superc, transport, the effective exchange,
+kinetic_energy_realspace, the static bare susceptibility chi0_ij_static /
+chi0_q_static) and the convergence monitor (DMFT_Tools'
 dmft_gloc_matsubara/realaxis, dmft_self_consistency, dmft_kinetic_energy,
 check_convergence).
 
-The O(Lmats x Le) DOS-integral work and the kinetic energies run on the
-host in numpy, as the reference keeps them on its host backend; the
-k-sums and the real-space inversions, batched complex128 matrix inverses
-over chunks of frequencies (x k-points), run on the device.
+The O(Lmats x Le) DOS-integral work, the kinetic energies and the chi0
+bubbles run on the host in numpy, as the reference keeps them on its host
+backend; the k-sums and the real-space inversions, batched complex128
+matrix inverses over chunks of frequencies (x k-points), run on the
+device.
 """
 
 from __future__ import annotations
@@ -676,6 +679,101 @@ def gloc_hk_lattice(cfg: EDConfig, hk: np.ndarray, sigma_lat: np.ndarray,
         out[..., i0:i0 + chunk] = _site_blocks(
             torch.mean(torch.linalg.inv(M), dim=1), cfg, nlat)
     return out
+
+
+def chi0_ij_static(cfg: EDConfig, gij_mats: np.ndarray) -> np.ndarray:
+    """Bare static susceptibility per spin from the non-local Matsubara GF
+    (drivers/chi0_lattice.f90:ed_get_chi0ij):
+
+        chi0_ij = -(1/β) Σ_n Tr_orb[ G_ij(iωₙ) G_ji(iωₙ) ]
+
+    with the exact 1/ωₙ² tail resummed analytically beyond the stored
+    frequencies (G_ij → δ_ij/(iω) ⇒ Σ_all 1/ωₙ² = β²/4). gij_mats:
+    [Nlat, Nlat, Nspin, Nspin, Norb, Norb, L]; returns chi0 [Nspin, Nlat,
+    Nlat] (spin-diagonal bubble, one entry per spin channel)."""
+    nlat = gij_mats.shape[0]
+    ns_, no = cfg.nspin, cfg.norb
+    L = gij_mats.shape[-1]
+    wn = np.pi / cfg.beta * (2 * np.arange(1, L + 1) - 1)
+    chi0 = np.zeros((ns_, nlat, nlat))
+    for s in range(ns_):
+        g = gij_mats[:, :, s, s]                        # [Nlat,Nlat,no,no,L]
+        # Tr_orb[G_ij G_ji] summed over positive freqs (x2 Re for ±n)
+        gg = np.einsum("ijabl,jibal->ijl", g, g)
+        chi0[s] = -(2.0 / cfg.beta) * np.sum(gg.real, axis=-1)
+    # analytic tail: diagonal 1/(iω)^2 term beyond the stored frequencies
+    tail = (1.0 / cfg.beta) * (cfg.beta ** 2 / 4.0 - 2.0 * np.sum(1 / wn ** 2))
+    for s in range(ns_):
+        chi0[s] += no * tail * np.eye(nlat)
+    return chi0
+
+
+def chi0_q_static(cfg: EDConfig, gij_mats: np.ndarray,
+                  positions: np.ndarray, qpts: np.ndarray) -> np.ndarray:
+    """chi0(q) = Σ_ij e^{-i q·(R_i - R_j)} chi0_ij / Nlat on arbitrary q
+    points (the q-resolved output of chi0_lattice.f90). Returns
+    [Nspin, Nq]."""
+    chi0 = chi0_ij_static(cfg, gij_mats)
+    nlat = positions.shape[0]
+    dr = positions[:, None, :] - positions[None, :, :]   # [i, j, dim]
+    ph = np.exp(-1j * np.einsum("qd,ijd->qij", qpts, dr))
+    return np.einsum("qij,sij->sq", ph, chi0).real / nlat
+
+
+def gloc_hk_lattice_superc(cfg: EDConfig, hk: np.ndarray,
+                           sigma_lat: np.ndarray, sigma_an_lat: np.ndarray,
+                           axis: str = "mats", chunk: int = 32,
+                           device="cuda"):
+    """Site-resolved Nambu local GF with k dispersion (the ed_ahm_stripe
+    supercell and ed_ahm_stackU geometries: a [Nlat*Nso, Nlat*Nso, Nk]
+    Bloch Hamiltonian over the reduced BZ with site-block-diagonal Σ, Σᴬ).
+    Per (z, k) inverts
+
+        M = [[(z+mu)I - H(k) - Σ,  -Σᴬ          ],
+             [-Σᴬ,   (z-mu)I + H(k) + Σ̄]]
+
+    and k-averages; the hole block carries +H(k), not conj(H(k)), and
+    Σ̄(z) = conj(Σ(z)) on the imaginary axis and conj(Σ(-w)) (the reversed
+    grid) on the real one, as gloc_hk_superc. One batched complex
+    torch.linalg.inv over [chunk, Nk, 2Nlso, 2Nlso] per chunk of
+    frequencies on `device`. Returns (G, F) site-diagonal blocks
+    [Nlat, Nspin, Nspin, Norb, Norb, L]."""
+    from .device import resolve
+    device = resolve(device)
+    z = _z(cfg, axis)
+    nso = cfg.nspin * cfg.norb
+    nlat = sigma_lat.shape[0]
+    nlso = nlat * nso
+    L = len(z)
+    sig_np = _sig_so(cfg, sigma_lat)
+    sbar_np = np.conj(sig_np) if axis == "mats" \
+        else np.conj(sig_np[..., ::-1])
+    sig = torch.as_tensor(sig_np, device=device)
+    sbar = torch.as_tensor(np.ascontiguousarray(sbar_np), device=device)
+    san = torch.as_tensor(_sig_so(cfg, sigma_an_lat), device=device)
+    hkT = torch.as_tensor(np.asarray(hk, dtype=complex),
+                          device=device).permute(2, 0, 1)   # [Nk, nlso, nlso]
+    eye = torch.eye(nlso, dtype=torch.complex128, device=device)
+    zt = torch.as_tensor(z, device=device)
+    shape = (nlat, cfg.nspin, cfg.nspin, cfg.norb, cfg.norb, L)
+    G = np.zeros(shape, dtype=complex)
+    F = np.zeros(shape, dtype=complex)
+    for i0 in range(0, L, chunk):
+        zc = zt[i0:i0 + chunk][:, None, None, None]
+        sl = slice(i0, i0 + zc.shape[0])
+
+        def emb(a):
+            return _embed(a[..., sl].permute(3, 0, 1, 2), nlat, nso)[:, None]
+        S, Sb, SA = emb(sig), emb(sbar), emb(san)
+        blk11 = (zc + cfg.xmu) * eye - hkT[None] - S
+        blk22 = (zc - cfg.xmu) * eye + hkT[None] + Sb
+        blk12 = (-SA).expand_as(blk11)
+        M = torch.cat([torch.cat([blk11, blk12], dim=-1),
+                       torch.cat([blk12, blk22], dim=-1)], dim=-2)
+        Gi = torch.mean(torch.linalg.inv(M), dim=1)          # k-sum
+        G[..., sl] = _site_blocks(Gi[:, :nlso, :nlso], cfg, nlat)
+        F[..., sl] = _site_blocks(Gi[:, :nlso, nlso:], cfg, nlat)
+    return G, F
 
 
 def gloc_realspace_superc(cfg: EDConfig, hij: np.ndarray,

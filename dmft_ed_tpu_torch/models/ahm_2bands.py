@@ -19,11 +19,7 @@ import sys
 import numpy as np
 
 from ..config import EDConfig, read_input
-from . import ahm_bethe, driver_args, split_device
-
-
-def _flag(v: str) -> bool:
-    return v.lower() in ("t", "true", "1", ".true.")
+from . import ahm_bethe, driver_args, flag, split_device
 
 
 def run(cfg: EDConfig | None = None, alpha: float = 1.0, le: int = 500,
@@ -47,8 +43,8 @@ def main(argv=None):
     cfg = read_input(path, argv, ed_mode="superc")
     kw = driver_args(argv, {"ALPHA": ("alpha", float), "LE": ("le", int),
                             "WMIXING": ("wmixing", float),
-                            "PHSYM": ("phsym", _flag),
-                            "NORMAL": ("normal_bath", _flag)})
+                            "PHSYM": ("phsym", flag),
+                            "NORMAL": ("normal_bath", flag)})
     r = run(cfg, device=device, **kw)
     print(f"converged={r.converged} iters={r.iterations} dens={r.dens} "
           f"docc={r.docc} phi={r.phisc}")
