@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """The JAX package's CPU values that ``chip_smoke.py`` holds phases 6, 8,
-9, 10, 11, 12, 13, 14 and 15 to.
+9, 10, 11, 12, 13, 14, 15 and 16 to.
 
 * ``--case bethe``: the canonical Hubbard loop of phase 6
   (``dmft_ed_tpu.models.hm_bethe.run`` with the package defaults: Norb=1,
@@ -58,6 +58,11 @@
   ``chip_smoke.STACK_CFG`` (four superc layers, Nbath=9, one iteration;
   phase 15(b)): the first solve's egs, dens, docc and phi per layer
   (about 13 minutes and 4 GiB).
+* ``--case f32``: the thick-restart sweep of phase 16(c)'s config
+  (``chip_smoke.ARPACK_CFG``: Norb=1, Nbath=11, arpack) on its initial
+  bath, restricted by ``ed_sectors`` to the half-filled (6,6) sector of
+  853,776 states, in ``dtype="float32"`` and in float64: the ground-state
+  energies and the seconds.
 
 The JAX package's nonsu2 G holds <<c_{b,s'}; c†_{a,s}>> at [s, s', a, b],
 the transpose of G0's convention (ROADMAP.md §3), which the port mends.
@@ -317,6 +322,25 @@ def run_drivers() -> dict:
     return dict(case="drivers", drivers=out)
 
 
+def run_f32() -> dict:
+    import numpy as np
+    from chip_smoke import ARPACK_CFG
+    from dmft_ed_tpu.bath import init_bath
+    from dmft_ed_tpu.config import EDConfig
+    from dmft_ed_tpu.diag import diagonalize
+    out = dict(case="f32")
+    for dt in ("float32", "float64"):
+        cfg = EDConfig(**dict(ARPACK_CFG, dtype=dt, ed_sectors=True,
+                              ed_sectors_shift=0, ed_verbose=0)).validate()
+        with open("sectors_list.restart", "w") as fh:
+            fh.write(f"{cfg.ns // 2} {cfg.ns // 2}\n")
+        hloc = np.zeros((1, 1, 1, 1))
+        t0 = time.time()
+        slist, _, _ = diagonalize(cfg, init_bath(cfg, hloc), hloc)
+        out[dt] = dict(egs=float(slist.emin), seconds=time.time() - t0)
+    return out
+
+
 def run_lattice_drivers() -> dict:
     import importlib
     import dmft_ed_tpu.models as models
@@ -382,7 +406,7 @@ def main() -> int:
     ap.add_argument("--case", choices=("bethe", "ahm", "nbath9", "soc", "bhz",
                                        "jz2", "flake", "soc_ineq",
                                        "drivers", "lattice_drivers",
-                                       "stack"),
+                                       "stack", "f32"),
                     required=True)
     ap.add_argument("--method", default="arpack")
     ap.add_argument("--nloop", type=int, default=None,
@@ -404,7 +428,7 @@ def main() -> int:
                    args.nloop or SOC_INEQ_NLOOP),
                "drivers": run_drivers,
                "lattice_drivers": run_lattice_drivers,
-               "stack": run_stack}[args.case]()
+               "stack": run_stack, "f32": run_f32}[args.case]()
         os.chdir(REPO)
     print(json.dumps(out))
     return 0

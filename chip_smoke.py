@@ -88,7 +88,7 @@ when any is missing or any phase fails. Phases:
     ``hm_2bands_bethe``, ``hm_dos``, ``ehm_bethe``, ``hm_bethe_afm``,
     ``ahm_2bands``, ``kspace.run_kspace``, ``hm_multiband``, ``material``
     (an H(k) file it writes) and ``ahm_square`` at small depth (Nbath
-    2-4, Lmats=200, 2 iterations), held to ``chip_reference.py --case
+    2-4, Lmats=200, one iteration), held to ``chip_reference.py --case
     drivers``, with its seconds; (b) BASELINE.json's 2-band Hund config at
     full width (``hm_bethe_nbands``: Norb=2, a hybrid bath of 10 levels,
     U'=U-2J, Jx=Jp=J; the (6,6) sector has 853,776 states), one
@@ -109,7 +109,7 @@ when any is missing or any phase fails. Phases:
     (afm2), ``bhz_edge``, ``bhz_edge_afm``, ``wsm_slab``, ``hartree_nano``,
     ``nano_isoc_sq`` (with chi0(q) and the local Chern marker), ``blg``
     (AA), ``tblg`` (synthetic hoppings) and ``twisted_blg`` at small depth
-    (Nbath 1-3, Lmats=200, 2 iterations), held to ``chip_reference.py
+    (Nbath 1-3, Lmats=200, one iteration), held to ``chip_reference.py
     --case lattice_drivers``, with its seconds; (b) the ed_ahm_stackU
     heterostructure at full width (``ahm_stripe.run_stack``: four
     superconducting layers in two U domains, Nbath=9, Sz=0 of 184,756
@@ -120,14 +120,35 @@ when any is missing or any phase fails. Phases:
     of one matvec (eager and graphed) and the peak memory; the superc
     and lattice paths run ``native``, so phase 15 launches no digit
     matmul;
-5. printed last, after phases 6 to 15: a ``{"kernels": [...]}`` line, the
+16. the meshes (ROADMAP.md §1 item 4) and float32 (item 5), in a
+    directory of its own. The card machine has one GPU, so
+    ``chip_smoke.py`` starts two rank processes that share cuda:0 in a
+    gloo group (``parallel.spawn.run_ranks``, joined with a timeout;
+    their times are not multi-GPU times): (a) ``EDSolver(mesh=rows 2)``
+    solves phase 7's config and bath, native and ozaki5x7, over the
+    ground state's sector and its neighbours (every one above the
+    default ``shard_dim_threshold``, so row-sharded: 462 of the (6,6)
+    sector's 924 rows per rank), held to phase 7's single-process solves
+    (egs 1e-10, G 1e-8, Σ 1e-6, dens and docc 1e-9), with the kernel's
+    launches on the sharded ozaki5x7 route, a sample of its calls held
+    bitwise, one sharded (6,6) matvec of each precision against the
+    unsharded one (bitwise under ozaki5x7, 1e-12 relative native), the
+    all-gathers per matvec, ms per sharded matvec beside its all-gather
+    alone and the unsharded matvec, and the peak memory per rank; (b) ``LatticeEDSolver(mesh=sites 2)`` on phase
+    13(a)'s flake (three classes on two site ranks), held to the
+    single-process batched solve (egs 1e-9, G 1e-7, dens and docc 1e-8);
+    (c) phase 7's native solve in ``dtype="float32"``: egs within 1e-5
+    relative of the float64 egs, seconds and peak memory beside phase
+    7's;
+5. printed last, after phases 6 to 16: a ``{"kernels": [...]}`` line, the
    card line, and as the last line ``{"ok": true, "device": {...}}``.
 
 Phases 10-12 print their seconds, the solver's stage timers, the matvecs
 of their largest sector, the torch calls of one matvec there, and the
 peak device memory.
 
-Phase 2 also holds the kernel at phase 9's classes: the 252 block class on
+Phase 2 also holds the kernel at phase 16's row-sharded class, 462x924 ·
+924x924 on both sides, and at phase 9's classes: the 252 block class on
 both sides and the largest pairing classes, 252 -> 210 and 210 -> 252, on
 both sides; and at phase 14's mix-term classes, a 924x924 hop operator
 c+_a c_b against a 924x4096 panel and against the 924x924 panel of one
@@ -135,7 +156,7 @@ Krylov vector of the (6,6) sector (the shape of every product phase
 14(c)'s Lanczos steps make), on both sides.
 
 Every path runs with the launch counts reset just before it and read just
-after it. ``--phases 10,12`` (for development; any of 10-15) runs phase
+after it. ``--phases 10,12`` (for development; any of 10-16) runs phase
 1 and the listed phases only, and prints no result line.
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -399,13 +420,15 @@ SOC_INEQ_JAX = dict(
 
 # Phase 14: the single-site drivers (ROADMAP.md §1 item 2).
 # (a) each new driver's run() on the card at small depth (Nbath 2-4,
-# Lmats=200, nk <= 8, 2 iterations, the fits to a tight stop), held to the
+# Lmats=200, nk <= 8, one iteration, the fit to a tight stop), held to the
 # JAX package's CPU run of the same case (python3 chip_reference.py --case
-# drivers): the first solve, before any fit, in egs; dens and docc after
-# two iterations by the backend-parity contract (PERF_NOTES.md). Two
-# bands of one width would leave the hybrid fit an orbital rotation free
-# (tests/test_torch_drivers_bethe.py), so hm_bethe_nbands takes two.
-DRIVER_BASE = dict(beta=50.0, lmats=200, lreal=64, lfit=200, nloop=2,
+# drivers): the first solve's egs, dens and docc by the backend-parity
+# contract (PERF_NOTES.md). Depth cut from two iterations to one (116 s
+# on an H100 at two) to make room for phase 16; the values are the
+# reference's at one iteration. Two bands of one width would leave the
+# hybrid fit an orbital rotation free (tests/test_torch_drivers_bethe.py),
+# so hm_bethe_nbands takes two.
+DRIVER_BASE = dict(beta=50.0, lmats=200, lreal=64, lfit=200, nloop=1,
                    dmft_error=1e-12, ed_verbose=0, cg_ftol=1e-12,
                    cg_niter=1000)
 HUND_SMALL = dict(DRIVER_BASE, norb=2, nbath=4, bath_type="hybrid",
@@ -443,48 +466,56 @@ DRIVER_CASES = {
 # the JAX package's CPU run of each case (python3 chip_reference.py --case
 # drivers): the iterations, the first solve's egs, the last dens and docc
 DRIVERS_JAX = {
-    "hm_bethe_nbands": dict(
-        iterations=2, first_egs=-7.479328353833774,
-        dens=[1.0062967207131859, 0.9870083848873211],
-        docc=[0.04675419531274905, 0.05901537344662349]),
-    "hm_2bands_bethe": dict(
-        iterations=2, first_egs=-11.402055880756208,
-        dens=[1.0174621174769312, 0.9657700281884851],
-        docc=[0.047432799450690136, 0.10439628079393719]),
-    "hm_dos": dict(
-        iterations=2, first_egs=-11.520337355029145,
-        dens=[1.0493495361445657, 0.9504911908833291],
-        docc=[0.15724215765831928, 0.13997988916651902]),
-    "ehm_bethe": dict(
-        iterations=2, first_egs=-5.773593608589926,
-        dens=[1.0221960881427217],
-        docc=[0.11069757216241899]),
-    "hm_bethe_afm": dict(
-        iterations=2, first_egs=-5.87006484669077,
-        dens=[0.9999657731242352],
-        docc=[0.024166419990704468]),
-    "ahm_2bands": dict(
-        iterations=2, first_egs=-10.988217965289993,
-        dens=[0.9999996603549667, 1.0000971627964255],
-        docc=[0.40179260900607283, 0.4489873438935985]),
-    "kspace": dict(
-        iterations=2, first_egs=-11.002302094016802,
-        dens=[0.9528294533621343, 1.0471705506591322],
-        docc=[0.14606476326552437, 0.1932353262135535]),
-    "hm_multiband": dict(
-        iterations=2, first_egs=-15.9979033937913,
-        dens=[0.9998077068325953, 0.9998077058792901, 0.994517098720839],
-        docc=[0.05694000618575272, 0.056940130122153335,
-              0.05438569186438644]),
-    "material": dict(
-        iterations=2, first_egs=-11.520337355029135,
-        dens=[0.9404651621523361, 1.059534825734685],
-        docc=[0.15390371037030695, 0.21343857005481218]),
-    "ahm_square": dict(
-        iterations=2, first_egs=-5.692449664093605,
-        dens=[1.000026576240463],
-        docc=[0.42117410091592805]),
-}
+    'hm_bethe_nbands': dict(
+        iterations=1,
+        first_egs=-7.479328353833771,
+        dens=[1.0174145386279414, 0.9688131697875572],
+        docc=[0.15731267307282243, 0.13365548091775797]),
+    'hm_2bands_bethe': dict(
+        iterations=1,
+        first_egs=-11.402055880756208,
+        dens=[1.06831858951836, 0.93168141048163],
+        docc=[0.2048836757380409, 0.13656508621967572]),
+    'hm_dos': dict(
+        iterations=1,
+        first_egs=-11.520337355029145,
+        dens=[1.053579952768755, 0.9464200472312305],
+        docc=[0.20351719339556895, 0.1499372406268067]),
+    'ehm_bethe': dict(
+        iterations=1,
+        first_egs=-5.773593608589926,
+        dens=[1.032858510471641],
+        docc=[0.19263478799766268]),
+    'hm_bethe_afm': dict(
+        iterations=1,
+        first_egs=-5.87006484669077,
+        dens=[0.9999999999999998],
+        docc=[0.142337885330382]),
+    'ahm_2bands': dict(
+        iterations=1,
+        first_egs=-10.988217965289993,
+        dens=[1.0000000000000036, 1.0000000000000044],
+        docc=[0.33392038965516524, 0.33392038965516574]),
+    'kspace': dict(
+        iterations=1,
+        first_egs=-11.002302094016802,
+        dens=[0.965701006835791, 1.0342989931641973],
+        docc=[0.15060706352191444, 0.18490605668611784]),
+    'hm_multiband': dict(
+        iterations=1,
+        first_egs=-15.9979033937913,
+        dens=[1.0003867299690496, 1.0003867299690496, 0.9890011978484208],
+        docc=[0.039627280663532286, 0.03962728066353227, 0.03443900153663476]),
+    'material': dict(
+        iterations=1,
+        first_egs=-11.520337355029135,
+        dens=[0.9464200472312281, 1.0535799527687528],
+        docc=[0.14993724062680636, 0.20351719339556856]),
+    'ahm_square': dict(
+        iterations=1,
+        first_egs=-5.6924496640936075,
+        dens=[0.999999999999999],
+        docc=[0.32444562776136393])}
 TOL_DRIVER_EGS = 1e-8
 TOL_DRIVER_DENS = 1e-3
 TOL_DRIVER_DOCC = 2e-3
@@ -511,17 +542,17 @@ HUND_KRYLOV = 40
 
 # Phase 15: the lattice drivers (ROADMAP.md §1 item 3).
 # (a) each new driver on the card at small depth (Nbath 1-3, beta=50,
-# Lmats=200, nk <= 8, 2 iterations, the fits to a tight stop), held to the
-# JAX package's CPU run of the same case (python3 chip_reference.py --case
-# lattice_drivers): the first solve's egs (per site, before any fit); dens
-# and docc after two iterations by the backend-parity contract
-# (PERF_NOTES.md), phi for the superc drivers; hartree_nano (one-body)
-# dens and mag; nano_isoc_sq's chi0(q) and local Chern marker after its
-# loop's first iteration. Depth cut: ahm_disorder runs one iteration (its
-# two took 94.5 s of phase 15's 200.3 s on an H100, its nine sites' joint
-# fits at 1,000 L-BFGS-B steps each), so its dens, docc and phi are the
-# first solve's.
-LATTICE_BASE = dict(DRIVER_BASE, nloop=2)
+# Lmats=200, nk <= 8, one iteration, the fits to a tight stop), held to
+# the JAX package's CPU run of the same case (python3 chip_reference.py
+# --case lattice_drivers): the first solve's egs (per site, before any
+# fit), each site's chi^2 after the first fit; the solve's dens and docc
+# by the backend-parity contract (PERF_NOTES.md), phi for the superc
+# drivers; hartree_nano (one-body) dens and mag; nano_isoc_sq's chi0(q)
+# and local Chern marker after its loop's first iteration. Depth cut:
+# every case runs one iteration (ahm_disorder's two took 94.5 s of phase
+# 15's 200.3 s on an H100; the others were cut to make room for phase
+# 16), so dens, docc and phi are the first solve's.
+LATTICE_BASE = dict(DRIVER_BASE, nloop=1)
 LATTICE_SC = dict(LATTICE_BASE, norb=1, nspin=1, ed_mode="superc",
                   uloc=(-2.0,))
 LATTICE_SPIN = dict(LATTICE_BASE, norb=1, nspin=2, uloc=(3.0,))
@@ -581,124 +612,125 @@ LATTICE_SEED = 17
 # nano_isoc_sq's chi0(q) and Chern marker
 LATTICE_JAX = {
     'ahm_stripe': dict(
-        iterations=2,
+        iterations=1,
         first_egs=[-5.494108982644975, -5.494108982644975, -5.429764016495174,
                    -5.429764016495174],
         chi2=[2.283425691e-05, 2.283425696e-05, 1.914021208e-05,
               1.914021173e-05],
-        dens=[[1.0000401436867867], [0.9999790910938801],
-              [1.0000036924648266], [1.0000283932063347]],
-        docc=[[0.4143908752635962], [0.41436033021657104],
-              [0.3441499679490213], [0.34416231948019277]],
-        phi=[[0.1675334117562245], [0.16753362145769607],
-             [0.08357528829351263], [0.0835753311389903]]),
+        dens=[[1.0000000000000024], [1.0000000000000024], [0.9999999999999997],
+              [0.9999999999999997]],
+        docc=[[0.33392038965516513], [0.33392038965516513],
+              [0.2938877244380446], [0.2938877244380446]],
+        phi=[[0.01751118285488007], [0.01751118285488007],
+             [0.0127137823762411], [0.0127137823762411]]),
     'ahm_stack': dict(
-        iterations=2,
-        first_egs=[-4.741883201432243, -4.741883201432243,
-                   -5.0448585401003685, -5.0448585401003685],
+        iterations=1,
+        first_egs=[-4.741883201432243, -4.741883201432243, -5.0448585401003685,
+                   -5.0448585401003685],
         chi2=[2.988500054e-06, 2.988500054e-06, 7.720789326e-06,
               7.720789516e-06],
-        dens=[[0.999999987692599], [0.9999999876923998], [1.0000680831063034],
-              [1.0000679200158045]],
-        docc=[[0.38014064771267697], [0.3801406516949276],
-              [0.42658128707844784], [0.42658113953653914]],
-        phi=[[0.3357007923095682], [0.3357007994101884], [0.3986835847122867],
-             [0.3986835526163064]]),
+        dens=[[1.0000000000000278], [1.0000000000000278], [1.0000000000000924],
+              [1.0000000000000924]],
+        docc=[[0.44171692516832894], [0.44171692516832894],
+              [0.4606167690080734], [0.4606167690080734]],
+        phi=[[0.4349143401556704], [0.4349143401556704], [0.4558980110711124],
+             [0.4558980110711124]]),
     'haldane_sc': dict(
-        iterations=2,
+        iterations=1,
         first_egs=[-5.434513154373611, -5.834513154373613],
         chi2=[8.680201852e-07, 8.680203687e-07],
-        dens=[[0.26719779061624077], [1.7328052461726395]],
-        docc=[[0.04787818524336767], [0.7806820739642856]],
-        phi=[[0.012831888464850616], [0.01283492901090788]]),
+        dens=[[0.628673578592975], [1.371326421407023]],
+        docc=[[0.19162479865606202], [0.5629512200630858]],
+        phi=[[0.020832901014086358], [0.020832901014085026]]),
     'ahm_disorder': dict(
         iterations=1,
         first_egs=[-4.801757949332179, -5.480358782677736, -4.830252111057587,
                    -5.086192534957441, -5.377393567136395, -5.052552898900522,
-                   -4.972384048420136, -4.824498282089912,
-                   -4.811907972042965],
+                   -4.972384048420136, -4.824498282089912, -4.811907972042965],
         chi2=[4.413302449e-05, 2.547800256e-05, 4.440574212e-05,
               7.275781119e-06, 1.51162898e-05, 3.198849859e-05,
               6.288564294e-06, 4.506207474e-05, 4.178855692e-05],
         dens=[[0.09028056443335664], [1.9093853331118302],
               [0.11005446156741414], [1.8964732739445165],
-              [1.9063127739405556], [1.8951582156485955],
-              [1.8915423596097976], [0.1050585758440714],
-              [0.09661057530076106]],
+              [1.9063127739405556], [1.8951582156485955], [1.8915423596097976],
+              [0.1050585758440714], [0.09661057530076106]],
         docc=[[0.0036412474388853523], [0.9130567971699535],
               [0.006210537930551547], [0.9014859849504986],
-              [0.9102697981447552], [0.9003474711116318],
-              [0.8973591811720407], [0.005220151839850799],
-              [0.0042431389907088566]],
+              [0.9102697981447552], [0.9003474711116318], [0.8973591811720407],
+              [0.005220151839850799], [0.0042431389907088566]],
         phi=[[0.004080177206316704], [0.004159834981731947],
              [0.026413354327893268], [0.011329853796492095],
              [0.005021512802987349], [0.013156817933558052],
              [0.021157719255405882], [0.013502388504273433],
              [0.006138283615887752]]),
     'kspace_afm': dict(
-        iterations=2,
+        iterations=1,
         first_egs=[-5.050943369848078, -5.05094336984808],
         chi2=[1.269711804e-06, 1.269711803e-06],
-        dens=[[0.9999999986246622], [0.9999999975659754]],
-        docc=[[0.07055187087631881], [0.07055187176716897]],
+        dens=[[1.0000000000000002], [1.0000000000000007]],
+        docc=[[0.04129058800019338], [0.04129058800019343]],
         phi=[[0.0], [0.0]]),
     'hm_slab': dict(
-        iterations=2,
+        iterations=1,
         first_egs=[-5.493486219854924, -5.493486219854924],
         chi2=[2.426885117e-05, 3.1158319e-05],
-        dens=[[0.9999999828476271], [1.0000000041263388]],
-        docc=[[0.1038806602346834], [0.11236181084017197]],
+        dens=[[0.9999999999999998], [0.9999999999999998]],
+        docc=[[0.1661927875676822], [0.1661927875676822]],
         phi=[[0.0], [0.0]]),
     'bhz_afm': dict(
-        iterations=2,
+        iterations=1,
         first_egs=[-4.901772470890918, -4.901772470890913],
         chi2=[0.01975180142, 0.01975180142],
-        dens=[[0.3031960665141334, 1.6968039334695366], [0.303196062991905,
-              1.6968039370792165]],
-        docc=[[3.356176828287845e-31, 0.6968039334695353],
-              [1.1543262958009481e-34, 0.6968039370792171]],
+        dens=[[0.6323539987360551, 1.3676460012639444],
+              [0.6323539987360554, 1.3676460012639455]],
+        docc=[[0.06273003068291151, 0.43037603194685603],
+              [0.06273003068291164, 0.43037603194685653]],
         phi=[[0.0, 0.0], [0.0, 0.0]]),
     'bhz_edge': dict(
-        iterations=2,
+        iterations=1,
         first_egs=[-4.895288797254227, -4.895288797254227],
         chi2=[0.003793426123, 0.001539659409],
-        dens=[[0.5036712341479554, 1.4963287658521263], [0.5347652756064821,
-              1.4652347243935633]],
-        docc=[[0.027938972584905533, 0.5242677384370087],
-              [0.03659093853263331, 0.5018256629261846]],
+        dens=[[0.6300563410644497, 1.369943658935552],
+              [0.6300563410644497, 1.369943658935552]],
+        docc=[[0.06276121078872583, 0.43270486972427713],
+              [0.06276121078872583, 0.43270486972427713]],
         phi=[[0.0, 0.0], [0.0, 0.0]]),
     'bhz_edge_afm': dict(
-        iterations=2,
+        iterations=1,
         first_egs=[-4.901772470890916, -4.901772470890916],
         chi2=[0.005191295552, 0.01786132845],
-        dens=[[0.4132068800953469, 1.5867931250024174], [0.28539287593624046,
-              1.7146071240651506]],
-        docc=[[0.015318509101516997, 0.6021116331652072],
-              [6.718817128549727e-31, 0.7146071240651503]],
+        dens=[[0.6323539987360534, 1.3676460012639442],
+              [0.6323539987360534, 1.3676460012639442]],
+        docc=[[0.06273003068291118, 0.4303760319468562],
+              [0.06273003068291118, 0.4303760319468562]],
         phi=[[0.0, 0.0], [0.0, 0.0]]),
     'wsm_slab': dict(
-        iterations=2,
+        iterations=1,
         first_egs=[-5.947100915285307, -5.947100915285307],
         chi2=[0.001030857032, 0.0002577177683],
-        dens=[[0.2590709537247928, 1.7409290462874758], [0.2981575464893189,
-              1.7018424535083823]],
-        docc=[[0.010544139730331574, 0.7514731860166718],
-              [0.014941709806354292, 0.7167841633149818]],
+        dens=[[0.34500192144933106, 1.6549980785506706],
+              [0.34500192144933106, 1.6549980785506706]],
+        docc=[[0.018039378865192728, 0.6730374574158623],
+              [0.018039378865192728, 0.6730374574158623]],
         phi=[[0.0, 0.0], [0.0, 0.0]]),
     'hartree_nano': dict(
         iterations=55,
         dens=[[0.9507266027626806, 0.049273397237319355],
-              [0.07011057271841786, 0.9298894272815825], [0.9298894272815821,
-              0.0701105727184179], [0.0492733972373193, 0.9507266027626806],
-              [0.07011057271841784, 0.9298894272815824], [0.9147001272548039,
-              0.08529987274519593], [0.08529987274519593, 0.9147001272548045],
-              [0.9298894272815826, 0.07011057271841792], [0.9298894272815819,
-              0.07011057271841795], [0.08529987274519596, 0.9147001272548041],
-              [0.9147001272548045, 0.08529987274519592], [0.07011057271841796,
-              0.9298894272815824], [0.049273397237319334, 0.9507266027626805],
-              [0.9298894272815825, 0.07011057271841792], [0.07011057271841797,
-              0.9298894272815822], [0.9507266027626797,
-              0.049273397237319334]],
+              [0.07011057271841786, 0.9298894272815825],
+              [0.9298894272815821, 0.0701105727184179],
+              [0.0492733972373193, 0.9507266027626806],
+              [0.07011057271841784, 0.9298894272815824],
+              [0.9147001272548039, 0.08529987274519593],
+              [0.08529987274519593, 0.9147001272548045],
+              [0.9298894272815826, 0.07011057271841792],
+              [0.9298894272815819, 0.07011057271841795],
+              [0.08529987274519596, 0.9147001272548041],
+              [0.9147001272548045, 0.08529987274519592],
+              [0.07011057271841796, 0.9298894272815824],
+              [0.049273397237319334, 0.9507266027626805],
+              [0.9298894272815825, 0.07011057271841792],
+              [0.07011057271841797, 0.9298894272815822],
+              [0.9507266027626797, 0.049273397237319334]],
         mag=[0.9014532055253612, -0.8597788545631646, 0.8597788545631642,
              -0.9014532055253613, -0.8597788545631646, 0.829400254509608,
              -0.8294002545096086, 0.8597788545631647, 0.8597788545631639,
@@ -713,40 +745,40 @@ LATTICE_JAX = {
         docc=[[0.03906806968154379]],
         phi=[[0.0]],
         chi0=[[0.11714630962796896, 0.13135685555843155, 0.13135685555843155,
-              0.13265386277042726, 0.14855679581055561, 0.14855679581055561,
-              0.13265386277042726, 0.14855679581055561, 0.14855679581055561],
+               0.13265386277042726, 0.14855679581055561, 0.14855679581055561,
+               0.13265386277042726, 0.14855679581055561, 0.14855679581055561],
               [0.11714630962796892, 0.13135685555843146, 0.13135685555843146,
-              0.13265386277042718, 0.1485567958105555, 0.1485567958105555,
-              0.13265386277042718, 0.1485567958105555, 0.1485567958105555]],
+               0.13265386277042718, 0.1485567958105555, 0.1485567958105555,
+               0.13265386277042718, 0.1485567958105555, 0.1485567958105555]],
         chern=[2.5745126702253103e-16, -1.2724676473665479e-17,
                6.757320186813245e-16, 2.892385646963191e-15,
                -1.565373720662023e-16, 1.5706837820724027e-15,
                -1.2320903942538782e-15, 8.37430565264286e-16,
                -2.4803065003015244e-15]),
     'blg': dict(
-        iterations=2,
+        iterations=1,
         first_egs=[-5.395199462081389, -5.395199462081389, -5.595199462081387,
                    -5.595199462081387],
         chi2=[6.472276151e-06, 6.472276151e-06, 6.472276151e-06,
               6.472276151e-06],
-        dens=[[0.9850285592665633], [0.9850285491642656], [1.014971415355736],
-              [1.014971427265238]],
-        docc=[[0.19816557824605394], [0.19816557099626972],
-              [0.21313701324501966], [0.21313701455826722]],
+        dens=[[0.9657225525827531], [0.9657225525827531], [1.0342774474172485],
+              [1.0342774474172485]],
+        docc=[[0.1497595593071828], [0.1497595593071828],
+              [0.18403700672443163], [0.18403700672443163]],
         phi=[[0.0], [0.0], [0.0], [0.0]]),
     'tblg': dict(
-        iterations=2,
+        iterations=1,
         first_egs=[-4.344318836531884, -5.344318836531886, -4.344318836531884,
                    -5.344318836531886],
         chi2=[0.0002999889498, 0.0001972009823, 0.0002999889498,
               0.0001972009823],
-        dens=[[0.8906468575101008], [1.1046520930007804],
-              [0.8906468575100988], [1.1046520930007795]],
-        docc=[[0.16721674576838133], [0.27676065241035247],
-              [0.16721674576838094], [0.27676065241035225]],
+        dens=[[0.9675694995656597], [1.032430500434341], [0.9675694995656597],
+              [1.032430500434341]],
+        docc=[[0.03752943926757378], [0.06995993970191404],
+              [0.03752943926757378], [0.06995993970191404]],
         phi=[[0.0], [0.0], [0.0], [0.0]]),
     'twisted_blg': dict(
-        iterations=2,
+        iterations=1,
         first_egs=[-2.0615528128088307, -2.0615528128088307,
                    -2.0615528128088307, -2.0615528128088307,
                    -2.0615528128088307, -2.0615528128088307,
@@ -771,37 +803,34 @@ LATTICE_JAX = {
               0.0003723270411, 0.000304761242, 0.0003700531726,
               0.0003700619628, 0.0003565614825, 0.0003064836744,
               0.0003053156284],
-        dens=[[1.0408310855987608], [1.0404321025212542],
-              [1.0400831780542747], [1.040254934776038], [1.0408305497503287],
-              [1.0413149994049458], [1.040463464672364], [1.0400127376068986],
-              [1.0407210030361815], [1.0411073744798238],
-              [1.0394602811282339], [1.0401859992828144], [1.041072404155127],
-              [1.0403543497401784], [1.0391730362892337],
-              [1.0411026424518686], [1.0410765492455876],
-              [1.0400418537798264], [1.0410879006598728], [1.040103754985061],
-              [1.0403295539335504], [1.0413084869876281],
-              [1.0401934615291923], [1.040575241027902], [1.0407516291608927],
-              [1.0400003210832485], [1.0406335992045341],
-              [1.0402942786910767]],
-        docc=[[0.2507704635511745], [0.2507112092064146],
-              [0.2505342651878698], [0.2505498571974616],
-              [0.25077048559271026], [0.2510152502725649],
-              [0.25072617162874883], [0.25049987082510883],
-              [0.2507155197103096], [0.25091084347328885],
-              [0.25015089528930523], [0.2505864028869515],
-              [0.25089201411309237], [0.2506735177366838],
-              [0.2500084145763216], [0.2509100217544063],
-              [0.25089635723662007], [0.2505146792818701],
-              [0.250901480598305], [0.2505470803910578],
-              [0.25066133135187163], [0.25101331244955727],
-              [0.2505912494466182], [0.25064335249162273],
-              [0.25073228799687647], [0.2504241282484358],
-              [0.2508132982291159], [0.2506422911036503]],
+        dens=[[0.9999999999999997], [0.9999999999999997], [0.9999999999999997],
+              [0.9999999999999997], [0.9999999999999997], [0.9999999999999997],
+              [0.9999999999999997], [0.9999999999999997], [0.9999999999999997],
+              [0.9999999999999997], [0.9999999999999997], [0.9999999999999997],
+              [0.9999999999999997], [0.9999999999999997], [0.9999999999999997],
+              [0.9999999999999997], [0.9999999999999997], [0.9999999999999997],
+              [0.9999999999999997], [0.9999999999999997], [0.9999999999999997],
+              [0.9999999999999997], [0.9999999999999997], [0.9999999999999997],
+              [0.9999999999999997], [0.9999999999999997], [0.9999999999999997],
+              [0.9999999999999997]],
+        docc=[[0.18936609374091673], [0.18936609374091673],
+              [0.18936609374091673], [0.18936609374091673],
+              [0.18936609374091673], [0.18936609374091673],
+              [0.18936609374091673], [0.18936609374091673],
+              [0.18936609374091673], [0.18936609374091673],
+              [0.18936609374091673], [0.18936609374091673],
+              [0.18936609374091673], [0.18936609374091673],
+              [0.18936609374091673], [0.18936609374091673],
+              [0.18936609374091673], [0.18936609374091673],
+              [0.18936609374091673], [0.18936609374091673],
+              [0.18936609374091673], [0.18936609374091673],
+              [0.18936609374091673], [0.18936609374091673],
+              [0.18936609374091673], [0.18936609374091673],
+              [0.18936609374091673], [0.18936609374091673]],
         phi=[[0.0], [0.0], [0.0], [0.0], [0.0], [0.0], [0.0], [0.0], [0.0],
              [0.0], [0.0], [0.0], [0.0], [0.0], [0.0], [0.0], [0.0], [0.0],
              [0.0], [0.0], [0.0], [0.0], [0.0], [0.0], [0.0], [0.0], [0.0],
-             [0.0]]),
-}
+             [0.0]])}
 TOL_LATTICE_PHI = 1e-4
 # each site's chi^2 after the first joint fit, against the JAX package's,
 # relative to the largest site's (the scale of the summed objective the
@@ -850,6 +879,46 @@ STACK_JAX = {'egs': [-11.372637028585594,
                      [0.12493229958392926],
                      [0.19204422585475894],
                      [0.19204422585475334]]}
+
+
+# Phase 16: the meshes (ROADMAP.md §1 item 4) and dtype="float32" (item 5).
+# The card machine has one GPU, so the row-sharded route runs as two rank
+# processes sharing cuda:0 in a gloo group (gloo carries the collectives
+# through host copies); their times are not multi-GPU times.
+# (a) one fixed-bath EDSolver(mesh=rows 2).solve of phase 7's config and
+# bath, native and ozaki5x7, over the ground state's sector and its N+-1
+# neighbours (ed_sectors with phase 7's sectors_list.restart: at T=0 the
+# result is the whole sweep's), every one of them above the default
+# shard_dim_threshold, so all sharded (the (6,6) sector: 462 of its 924
+# rows per rank); held to phase 7's single-process solves at the bounds
+# of tests/test_parallel.py:145-155, and one sharded (6,6) matvec under
+# ozaki5x7 bitwise to the unsharded one
+P16_RANKS = 2
+P16_TIMEOUT = 420.0
+TOL_P16_EGS = 1e-10
+TOL_P16_G = 1e-8
+TOL_P16_SIGMA = 1e-6
+TOL_P16_OBS = 1e-9
+P16_MATVECS = 20
+# the native sharded matvec against the unsharded one (row slices of one
+# f64 GEMM: the same sums, perhaps not the same blocking)
+TOL_P16_MATVEC_REL = 1e-12
+# (b) one LatticeEDSolver(mesh=sites 2).solve of phase 13(a)'s flake
+# (Nbath=6, three classes on two site ranks: the sites axis pads) on the
+# initial baths perturbed from a seed, held to the single-process batched
+# solve at tests/test_parallel.py:264-270's bounds
+TOL_P16_SITES_EGS = 1e-9
+TOL_P16_SITES_G = 1e-7
+TOL_P16_SITES_OBS = 1e-8
+# (c) phase 7's native solve in dtype="float32": egs within the JAX
+# package's float32 tolerance (diag.py:211) of the float64 egs; and the
+# float32 thick restart of the (6,6) sector on the initial bath, held to
+# the JAX package's float32 egs of the same sweep (python3
+# chip_reference.py --case f32) at the same tolerance
+TOL_F32_EGS_REL = 1e-5
+# (its float64 egs there: -13.328425446921548; 14.0 s and 59.4 s on the
+# CPU)
+F32_JAX_EGS = -13.32846450805664
 
 
 def card_line() -> str:
@@ -1066,6 +1135,15 @@ def kernel_cases(device, cfg_kwargs):
         if n == cfg.ns // 2:
             out += [(c[0] + " 6x6",) + c[1:3] + (6, 6, None, None)
                     for c in (dw, up)]
+            # phase 16's row-sharded (6,6) products on two ranks: a rank's
+            # Hdw rows against the gathered vector, its local rows of the
+            # vector against Hup^T
+            h, V = K // 2, randn(K, K) / K
+            out += [(f"rows dw {h} of {K} (Hdw rows @ gathered V)",
+                     H_dw[:h].contiguous(), V, 5, 7, None, None),
+                    (f"rows up {h} of {K} (local V rows @ Hup^T)",
+                     V[:h].contiguous(), H_up.T.contiguous(), 5, 7, None,
+                     None)]
     Ar, Br = randn(300, 129), randn(129, 501)
     out += [("ragged 300x129x501", Ar, Br, 5, 7, None, None),
             ("ragged, nonzero pad", Ar, Br, 5, 7, None, 37),
@@ -1241,13 +1319,14 @@ def arpack_solve(device, bath, egs_lanczos):
     expansions and matvecs per p2 bucket and per serial sector, and the
     kernel's launches; egs against the plain-Lanczos native egs of the same
     bath, and native against ozaki5x7. Returns the ozaki solve's launches
-    per kernel."""
+    per kernel, and the results and (seconds, peak GiB) of both solves
+    (phase 16 holds its sharded solves to them)."""
     import numpy as np
     import torch
     from dmft_ed_tpu_torch.config import EDConfig
     from dmft_ed_tpu_torch.kernels import KERNELS, reset_launches
     from dmft_ed_tpu_torch.solver import EDSolver
-    res, launches = {}, {}
+    res, launches, seconds = {}, {}, {}
     for prec in ("native", "ozaki5x7"):
         cut = ARPACK_OZAKI_SECTORS if prec != "native" else {}
         cfg = EDConfig(**dict(ARPACK_CFG, matmul_precision=prec,
@@ -1257,12 +1336,14 @@ def arpack_solve(device, bath, egs_lanczos):
         solver = EDSolver(cfg, hloc, device=device, log=lambda m: lines.append(
             m) if m.startswith("thick restart") else None)
         reset_launches()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.time()
         res[prec] = solver.solve(bath)
         if device.type == "cuda":
             torch.cuda.synchronize()
         dt = time.time() - t0
         launches[prec] = {name: fn.launches for name, fn in KERNELS.items()}
+        seconds[prec] = (dt, _peak_gib())
         stages = {k: round(v, 3) for k, v in sorted(solver.timers.acc.items())}
         print(f"arpack solve {prec}: {dt:.3f} s egs={res[prec].egs!r} "
               f"docc={res[prec].observables.docc.tolist()} "
@@ -1296,7 +1377,7 @@ def arpack_solve(device, bath, egs_lanczos):
             bad.append(f"the ozaki5x7 arpack solve never launched {name}")
     if bad:
         raise AssertionError("; ".join(bad))
-    return launches["ozaki5x7"]
+    return launches["ozaki5x7"], res, seconds
 
 
 def superc_kernel_cases(device):
@@ -1527,8 +1608,8 @@ def count_matvecs():
     counts = {}
     orig = lanczos._op_matvec
 
-    def counting(spec, blocks, arrays):
-        mv = orig(spec, blocks, arrays)
+    def counting(spec, blocks, arrays, mesh=None):
+        mv = orig(spec, blocks, arrays, mesh)
         d = sum(a * b for a, b in blocks)
 
         def counted(x):
@@ -2393,6 +2474,306 @@ def lattice_phases(device, work):
     return out
 
 
+def _p16_cfg(prec, **extra):
+    from dmft_ed_tpu_torch.config import EDConfig
+    return EDConfig(**dict(ARPACK_CFG, matmul_precision=prec,
+                           **dict(ARPACK_OZAKI_SECTORS, **extra))).validate()
+
+
+def _p16_flake():
+    """Phase 16(b)'s problem: the flake's class hlocs and the initial
+    baths of FLAKE_CFG perturbed from a seed."""
+    import numpy as np
+    from dmft_ed_tpu_torch.aux import lso2nnn
+    from dmft_ed_tpu_torch.bath import init_bath, pack_bath
+    from dmft_ed_tpu_torch.config import EDConfig
+    from dmft_ed_tpu_torch.models.nano import square_flake_hij
+    hij, l2i = square_flake_hij(FLAKE_RUN["lx"], FLAKE_RUN["ly"],
+                                t=FLAKE_RUN["ts"])
+    i2l = [int(np.nonzero(l2i == i)[0][0]) for i in range(l2i.max() + 1)]
+    hloc = lso2nnn(hij, len(l2i), 1, 1)[i2l]
+    cfg = EDConfig(**dict(FLAKE_CFG, nloop=1)).validate()
+    baths = np.stack([pack_bath(init_bath(cfg, hloc[i]))
+                      for i in range(len(hloc))])
+    return cfg, hloc, baths + 0.02 * np.random.default_rng(16).normal(
+        size=baths.shape)
+
+
+def _solve_values(r):
+    return dict(egs=r.egs, gmats=r.gmats, smats=r.smats,
+                dens=r.observables.dens, docc=r.observables.docc)
+
+
+def p16_rank(bath, sectors):
+    """Phase 16's rank program (two ranks share cuda:0 in a gloo group):
+    (a) the sharded Nbath=11 solves, native and ozaki5x7, and one sharded
+    (6,6) matvec of each against the unsharded one (bitwise under
+    ozaki5x7), timed beside its all-gather alone and the unsharded
+    matvec, with its all-gathers counted; (b) the flake on a sites=2
+    mesh. Returns this rank's results, launches and peak memory."""
+    import numpy as np
+    import torch
+    from dmft_ed_tpu_torch.bath import unpack_bath
+    from dmft_ed_tpu_torch.hamiltonian import (apply_op,
+                                               build_sector_hamiltonian,
+                                               make_matvec_op)
+    from dmft_ed_tpu_torch.kernels import KERNELS, reset_launches
+    from dmft_ed_tpu_torch.lattice_solver import LatticeEDSolver
+    from dmft_ed_tpu_torch.parallel import make_mesh, row_slice
+    from dmft_ed_tpu_torch.parallel.hxv import row_gather, sharded_sector_op
+    from dmft_ed_tpu_torch.sectors import sector_table
+    from dmft_ed_tpu_torch.solver import EDSolver
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = torch.device("cuda", 0)
+    rows = make_mesh(device="cuda")
+    calls = {"all_gather": 0, "all_reduce": 0}
+    for name in calls:
+        fn = getattr(rows, name)
+
+        def counted(*a, _fn=fn, _n=name, **k):
+            calls[_n] += 1
+            return _fn(*a, **k)
+        setattr(rows, name, counted)
+    out = {"coord": rows.coord}
+    with open("sectors_list.restart", "w") as fh:
+        fh.write(sectors)
+    for prec in ("native", "ozaki5x7"):
+        cfg = _p16_cfg(prec)
+        hloc = np.zeros((1, 1, 1, 1))
+        solver = EDSolver(cfg, hloc, log=lambda m: None, mesh=rows)
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        for k in calls:
+            calls[k] = 0
+        t0 = time.time()
+        with held_kernel() as held:
+            r = solver.solve(bath)
+        torch.cuda.synchronize()
+        out[prec] = dict(
+            _solve_values(r), seconds=time.time() - t0,
+            launches={n: fn.launches for n, fn in KERNELS.items()},
+            collectives=dict(calls), held=len(held), peak_gib=_peak_gib(),
+            stages={k: round(v, 3)
+                    for k, v in sorted(solver.timers.acc.items())})
+    # one (6,6) matvec, sharded against unsharded (bitwise under
+    # ozaki5x7), and the host-clock split of a sharded matvec: its
+    # all-gather alone, the unsharded matvec in the same process
+    def ms_per(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        for _ in range(P16_MATVECS):
+            fn()
+        torch.cuda.synchronize()
+        return 1e3 * (time.time() - t0) / P16_MATVECS
+
+    out["matvec"] = {}
+    for prec in ("native", "ozaki5x7"):
+        cfg = _p16_cfg(prec)
+        sec = sector_table(cfg).get(cfg.ns // 2, cfg.ns // 2)
+        ham = build_sector_hamiltonian(cfg, sec, unpack_bath(cfg, bath),
+                                       np.zeros((1, 1, 1, 1)))
+        spec, arrays, blocks, _ = sharded_sector_op(ham, cfg, rows)
+        s1, a1, b1 = make_matvec_op(ham, cfg, device)
+        g = torch.Generator().manual_seed(160)
+        x = torch.randn(b1[0], dtype=torch.float64, generator=g).to(device)
+        sl = row_slice(rows, b1[0][0])
+        xl = x[sl].contiguous()
+        y1 = apply_op(s1, a1, (x,))[0][sl]
+        gather = row_gather(rows)
+        for k in calls:
+            calls[k] = 0
+        y2 = apply_op(spec, arrays, (xl,), gather)[0]
+        out["matvec"][prec] = dict(
+            bitwise=bool(torch.equal(y1, y2)),
+            max_rel_err=float((y1 - y2).abs().max() / y1.abs().max()),
+            gathers=calls["all_gather"], local=tuple(blocks[0]),
+            ms=ms_per(lambda: apply_op(spec, arrays, (xl,), gather)),
+            gather_ms=ms_per(lambda: gather(xl)),
+            unsharded_ms=ms_per(lambda: apply_op(s1, a1, (x,))),
+            gather_mb=8 * b1[0][0] * b1[0][1] / 1e6)
+    # (b) the flake on a sites=2 mesh
+    sites = make_mesh(n_rows=1, n_sites=P16_RANKS, device="cuda")
+    fcfg, fhloc, fbaths = _p16_flake()
+    os.makedirs("flake")
+    os.chdir("flake")
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    rs = LatticeEDSolver(fcfg, fhloc, log=lambda m: None,
+                         mesh=sites).solve(fbaths)
+    torch.cuda.synchronize()
+    out["flake"] = dict(
+        values=[_solve_values(r) for r in rs], seconds=time.time() - t0,
+        launches={n: fn.launches for n, fn in KERNELS.items()},
+        peak_gib=_peak_gib())
+    os.chdir("..")
+    return out
+
+
+def mesh_phases(device, work, bath=None, res7=None, secs7=None,
+                sectors=None):
+    """Phase 16 (a)-(c) in a directory of its own. Without phase 7's
+    results (``--phases 16``) it solves its own single-process references
+    on the initial bath first. Returns the launches per kernel of each
+    path (the ranks' launches summed)."""
+    import numpy as np
+    import torch
+    from dmft_ed_tpu_torch.bath import init_bath, pack_bath
+    from dmft_ed_tpu_torch.diag import diagonalize
+    from dmft_ed_tpu_torch.kernels import KERNELS, reset_launches
+    from dmft_ed_tpu_torch.lattice_solver import LatticeEDSolver
+    from dmft_ed_tpu_torch.parallel.spawn import run_ranks
+    from dmft_ed_tpu_torch.solver import EDSolver
+    t16 = time.time()
+    os.mkdir("phase16")
+    os.chdir("phase16")
+    hloc = np.zeros((1, 1, 1, 1))
+    if res7 is None:
+        cfg = _p16_cfg("native", ed_sectors=False)
+        bath = pack_bath(init_bath(cfg, hloc))
+        res7, secs7 = {}, {}
+        for prec in ("native", "ozaki5x7"):
+            t0 = time.time()
+            torch.cuda.reset_peak_memory_stats()
+            res7[prec] = EDSolver(_p16_cfg(prec, ed_sectors=prec != "native"),
+                                  hloc, log=lambda m: None,
+                                  device=device).solve(bath)
+            torch.cuda.synchronize()
+            secs7[prec] = (time.time() - t0, _peak_gib())
+        sectors = open("sectors_list.restart").read()
+    # (b)'s single-process reference, the batched solve
+    fcfg, fhloc, fbaths = _p16_flake()
+    os.mkdir("flake")
+    os.chdir("flake")
+    t0 = time.time()
+    flake1 = LatticeEDSolver(fcfg, fhloc, log=lambda m: None,
+                             device=device).solve(fbaths)
+    torch.cuda.synchronize()
+    dt_flake1 = time.time() - t0
+    os.chdir("..")
+    # (a), (b): the two ranks
+    t0 = time.time()
+    ranks = run_ranks(f"{os.path.abspath(__file__)}:p16_rank", P16_RANKS,
+                      dict(bath=np.asarray(bath), sectors=sectors),
+                      os.path.join(os.getcwd(), "ranks"), P16_TIMEOUT,
+                      backend="gloo", threads=2)
+    dt_ranks = time.time() - t0
+    out, bad = {}, []
+    for prec in ("native", "ozaki5x7"):
+        ref = _solve_values(res7[prec])
+        for rk, rr in enumerate(ranks):
+            x = rr[prec]
+            d = dict(egs=abs(x["egs"] - ref["egs"]),
+                     g=float(np.max(np.abs(x["gmats"] - ref["gmats"]))),
+                     sigma=float(np.max(np.abs(x["smats"] - ref["smats"]))),
+                     dens=float(np.max(np.abs(x["dens"] - ref["dens"]))),
+                     docc=float(np.max(np.abs(x["docc"] - ref["docc"]))))
+            print(f"phase 16(a) sharded {prec} rank {rk}: {x['seconds']:.3f}"
+                  f" s (single process, phase 7: {secs7[prec][0]:.3f} s, "
+                  f"peak {secs7[prec][1]:.3f} GiB) "
+                  f"egs={x['egs']!r} launches={x['launches']} "
+                  f"collectives={x['collectives']} kernel calls held "
+                  f"bitwise: {x['held']} peak {x['peak_gib']:.3f} GiB\n"
+                  f"  stages {json.dumps(x['stages'])}\n  against phase 7: "
+                  f"|d egs|={d['egs']:.3e} (bound {TOL_P16_EGS:g}) "
+                  f"max|d G(iω)|={d['g']:.3e} ({TOL_P16_G:g}) max|d Σ(iω)|="
+                  f"{d['sigma']:.3e} ({TOL_P16_SIGMA:g}) |d dens|="
+                  f"{d['dens']:.3e} |d docc|={d['docc']:.3e} "
+                  f"({TOL_P16_OBS:g})")
+            if not (d["egs"] <= TOL_P16_EGS and d["g"] <= TOL_P16_G
+                    and d["sigma"] <= TOL_P16_SIGMA
+                    and d["dens"] <= TOL_P16_OBS
+                    and d["docc"] <= TOL_P16_OBS):
+                bad.append(f"(a) {prec} rank {rk} differs from the "
+                           "single-process solve")
+        out[f"sharded_nbath11_{prec}"] = {
+            n: sum(rr[prec]["launches"][n] for rr in ranks) for n in KERNELS}
+    if out["sharded_nbath11_ozaki5x7"]["digit_matmul"] <= 0:
+        bad.append("(a) the sharded ozaki5x7 solve launched no kernel")
+    if out["sharded_nbath11_native"]["digit_matmul"] != 0:
+        bad.append("(a) the sharded native solve launched the kernel")
+    for rk, rr in enumerate(ranks):
+        for prec, m in rr["matvec"].items():
+            print(f"phase 16(a) (6,6) {prec} matvec rank {rk}: local block "
+                  f"{m['local']}, against the unsharded one bitwise: "
+                  f"{m['bitwise']} (max relative {m['max_rel_err']:.3e}), "
+                  f"{m['gathers']} all-gather of {m['gather_mb']:.2f} MB; "
+                  f"host clock, two ranks on one card: {m['ms']:.3f} ms "
+                  f"per sharded matvec, {m['gather_ms']:.3f} ms of it the "
+                  f"all-gather alone, {m['unsharded_ms']:.3f} ms per "
+                  "unsharded matvec")
+            if prec != "native" and not m["bitwise"]:
+                bad.append(f"(a) rank {rk}'s sharded {prec} matvec is not "
+                           "bitwise")
+            if not m["max_rel_err"] <= TOL_P16_MATVEC_REL:
+                bad.append(f"(a) rank {rk}'s sharded {prec} matvec "
+                           "differs")
+    for rk, rr in enumerate(ranks):
+        f = rr["flake"]
+        d_e = max(abs(a["egs"] - r.egs) for a, r in zip(f["values"], flake1))
+        d_g = max(float(np.max(np.abs(a["gmats"] - r.gmats)))
+                  for a, r in zip(f["values"], flake1))
+        d_o = max(max(float(np.max(np.abs(a["dens"] - r.observables.dens))),
+                      float(np.max(np.abs(a["docc"] - r.observables.docc))))
+                  for a, r in zip(f["values"], flake1))
+        print(f"phase 16(b) flake Nbath=6 on sites=2, rank {rk}: "
+              f"{f['seconds']:.3f} s (single process {dt_flake1:.3f} s), "
+              f"launches={f['launches']} peak {f['peak_gib']:.3f} GiB; "
+              f"max|d egs|={d_e:.3e} ({TOL_P16_SITES_EGS:g}) max|d G(iω)|="
+              f"{d_g:.3e} ({TOL_P16_SITES_G:g}) max|d dens, docc|={d_o:.3e} "
+              f"({TOL_P16_SITES_OBS:g})")
+        if not (len(f["values"]) == 3 and d_e <= TOL_P16_SITES_EGS
+                and d_g <= TOL_P16_SITES_G and d_o <= TOL_P16_SITES_OBS):
+            bad.append(f"(b) rank {rk}'s flake differs from the batched "
+                       "solve")
+    out["lattice_sites_mesh_native"] = {
+        n: sum(rr["flake"]["launches"][n] for rr in ranks) for n in KERNELS}
+    print(f"phase 16(a-b): the two ranks in {dt_ranks:.3f} s")
+    # (c) float32
+    cfg = _p16_cfg("native", ed_sectors=False, dtype="float32")
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    r32 = EDSolver(cfg, hloc, log=lambda m: None, device=device).solve(bath)
+    torch.cuda.synchronize()
+    dt32 = time.time() - t0
+    out["float32_nbath11"] = {n: fn.launches for n, fn in KERNELS.items()}
+    e64 = res7["native"].egs
+    rel = abs(r32.egs - e64) / abs(e64)
+    print(f"phase 16(c) float32 Nbath=11 solve: {dt32:.3f} s, peak "
+          f"{_peak_gib():.3f} GiB (float64, phase 7: {secs7['native'][0]:.3f}"
+          f" s, peak {secs7['native'][1]:.3f} GiB) "
+          f"egs={r32.egs!r} (float64 {e64!r}) relative {rel:.3e} (bound "
+          f"{TOL_F32_EGS_REL:g}) docc={r32.observables.docc.tolist()} "
+          f"launches={out['float32_nbath11']}")
+    if not rel <= TOL_F32_EGS_REL:
+        bad.append("(c) float32 egs differs from float64")
+    with open("sectors_list.restart", "w") as fh:
+        fh.write(f"{cfg.ns // 2} {cfg.ns // 2}\n")
+    cfg66 = _p16_cfg("native", ed_sectors_shift=0, dtype="float32")
+    t0 = time.time()
+    sl66, _, _ = diagonalize(cfg66, init_bath(cfg66, hloc), hloc,
+                             device=device)
+    torch.cuda.synchronize()
+    rel_j = abs(sl66.emin - F32_JAX_EGS) / abs(F32_JAX_EGS)
+    print(f"phase 16(c) float32 (6,6) thick restart on the initial bath: "
+          f"{time.time() - t0:.3f} s egs={sl66.emin!r}, the JAX package's "
+          f"float32 {F32_JAX_EGS!r}: relative {rel_j:.3e} (bound "
+          f"{TOL_F32_EGS_REL:g})")
+    if not rel_j <= TOL_F32_EGS_REL:
+        bad.append("(c) float32 egs differs from the JAX package's")
+    if not all(np.all(np.isfinite(getattr(r32, f)))
+               for f in ("gmats", "smats")):
+        bad.append("(c) non-finite float32 G or Σ")
+    os.chdir(work)
+    print(f"phase 16: {time.time() - t16:.3f} s")
+    if bad:
+        raise AssertionError("phase 16: " + "; ".join(bad))
+    return out
+
+
 def nbands_full(device):
     """Phase 14(b): hm_bethe_nbands.run on NBANDS_CFG, one iteration:
     seconds per stage, the largest sector's matvecs, torch calls and ms
@@ -2633,6 +3014,8 @@ def dev_phases(device, want, work):
         driver_phases(device, work)
     if want(15):
         lattice_phases(device, work)
+    if want(16):
+        mesh_phases(device, work)
     print("chip_smoke: development run of some phases only; no result")
     return 0
 
@@ -2694,7 +3077,9 @@ def main() -> int:
             os.chdir(work)
             check_canonical(rc)
             # ---- phase 7: the thick restart at Nbath=11, native + ozaki
-            launches_a = arpack_solve(device, r.bath, egs_lanczos)
+            launches_a, res7, secs7 = arpack_solve(device, r.bath,
+                                                   egs_lanczos)
+            sectors7 = open("sectors_list.restart").read()
             # ---- phase 8: the canonical AHM loop, in a directory of its own
             os.mkdir("ahm")
             os.chdir("ahm")
@@ -2716,6 +3101,9 @@ def main() -> int:
             launches_14 = driver_phases(device, work)
             # ---- phase 15: the lattice drivers, the superc U-stack
             launches_15 = lattice_phases(device, work)
+            # ---- phase 16: the meshes (two ranks on the card), float32
+            launches_16 = mesh_phases(device, work, r.bath, res7, secs7,
+                                      sectors7)
         finally:
             os.chdir(REPO)
 
@@ -2747,11 +3135,12 @@ def main() -> int:
             "spin_orbit_impurity_native": launches_jz["digit_matmul"],
             **{k: v["digit_matmul"] for k, v in launches_13.items()},
             **{k: v["digit_matmul"] for k, v in launches_14.items()},
-            **{k: v["digit_matmul"] for k, v in launches_15.items()}},
+            **{k: v["digit_matmul"] for k, v in launches_15.items()},
+            **{k: v["digit_matmul"] for k, v in launches_16.items()}},
         "ms_per_class": {c["label"]: c["ms"] for c in cases
                          if "embedded" in c["label"]
                          or c["label"].startswith(("fused", "superc",
-                                                   "mix"))},
+                                                   "mix", "rows"))},
     }]
     print(f"total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

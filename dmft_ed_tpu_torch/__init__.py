@@ -9,7 +9,9 @@ Every tensor lives on one explicit ``device`` (default ``"cuda"``), threaded
 from ``EDSolver(cfg, hloc, device=...)`` and ``models.hm_bethe.run(...,
 device=...)`` down to the Krylov vectors; ``device="cpu"`` is the only way
 onto the CPU, and asking for cuda on a machine without one raises. Work is
-in float64 / complex128 throughout.
+in float64 / complex128, or float32 / complex64 with ``dtype="float32"``.
+With a ``(sites, rows)`` mesh on torch.distributed (``parallel/``), every
+rank runs the same code and large sectors solve row-sharded.
 
 The Ozaki int8 digit matmul (``matmul_precision="ozaki*"``) runs on a
 hand-written CUDA kernel (``csrc/digit_matmul.cu`` via

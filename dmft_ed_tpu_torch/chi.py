@@ -122,9 +122,11 @@ def chi_rows_plan(cfg: EDConfig, slist: StateList, rows, batch,
 
 
 def _chi_generic(cfg: EDConfig, slist: StateList, zeta: float, bath: Bath,
-                 hloc, finite_t: bool, rows, log=None, device="cuda"):
-    """Single-impurity susceptibility over chi_rows_plan."""
-    cache = HamCache(cfg, bath, hloc, device)
+                 hloc, finite_t: bool, rows, log=None, device="cuda",
+                 mesh=None):
+    """Single-impurity susceptibility over chi_rows_plan (row-sharded
+    above cfg.shard_dim_threshold with a `mesh`)."""
+    cache = HamCache(cfg, bath, hloc, device, mesh)
     batch = ResolventBatch(cfg, cache, slist.emin, zeta, finite_t)
     fin = chi_rows_plan(cfg, slist, rows, batch)
     return fin(list(batch.run()))
@@ -155,14 +157,14 @@ def _rows_spin(cfg: EDConfig):
 
 
 def build_chi_spin(cfg: EDConfig, slist, zeta, bath, hloc, finite_t,
-                   log=None, device="cuda"):
+                   log=None, device="cuda", mesh=None):
     """Returns arrays [Norb(+1 tot), Norb broadcast, L] shaped [N, N, L]-like:
     here (rows = orbitals + total) mapped to [Norb+t, Norb+t] diag layout."""
     if log:
         log("Get impurity spin Chi:")
     rows, post = _rows_spin(cfg)
     return post(*_chi_generic(cfg, slist, zeta, bath, hloc, finite_t,
-                              rows, log, device))
+                              rows, log, device, mesh))
 
 
 def _rows_dens(cfg: EDConfig):
@@ -227,12 +229,12 @@ def _rows_dens(cfg: EDConfig):
 
 
 def build_chi_dens(cfg: EDConfig, slist, zeta, bath, hloc, finite_t,
-                   log=None, device="cuda"):
+                   log=None, device="cuda", mesh=None):
     if log:
         log("Get impurity dens Chi:")
     rows, post = _rows_dens(cfg)
     return post(*_chi_generic(cfg, slist, zeta, bath, hloc, finite_t,
-                              rows, log, device))
+                              rows, log, device, mesh))
 
 
 def _nvec(ns, coeffs):
@@ -284,12 +286,12 @@ def _rows_dens_mix(cfg: EDConfig):
 
 
 def build_chi_dens_mix(cfg: EDConfig, slist, zeta, bath, hloc, finite_t,
-                       log=None, device="cuda"):
+                       log=None, device="cuda", mesh=None):
     if log:
         log("Get impurity dens Chi (mix):")
     rows, post = _rows_dens_mix(cfg)
     return post(*_chi_generic(cfg, slist, zeta, bath, hloc, finite_t,
-                              rows, log, device))
+                              rows, log, device, mesh))
 
 
 def _rows_pair(cfg: EDConfig):
@@ -314,12 +316,12 @@ def _rows_pair(cfg: EDConfig):
 
 
 def build_chi_pair(cfg: EDConfig, slist, zeta, bath, hloc, finite_t,
-                   log=None, device="cuda"):
+                   log=None, device="cuda", mesh=None):
     if log:
         log("Get impurity pair Chi:")
     rows, post = _rows_pair(cfg)
     return post(*_chi_generic(cfg, slist, zeta, bath, hloc, finite_t,
-                              rows, log, device))
+                              rows, log, device, mesh))
 
 
 _CHI_KINDS = {"spin": _rows_spin, "dens": _rows_dens,

@@ -17,7 +17,15 @@ Inequivalent sites: ``diagonalize_sites`` sweeps every site's sectors in
 one pass, one batched dense eigh per small sector and one stacked thick
 restart over the sites' operators per large one.
 
-Not ported (see ROADMAP.md): the mesh-sharded solve.
+Meshes (parallel/): with a ``(sites, rows)`` mesh, sectors of dim >=
+cfg.shard_dim_threshold solve row-sharded (parallel.hxv), and
+``diagonalize_sites`` splits its eigh batches and stacked restarts over
+the sites group. Every rank draws the same start vectors in sweep order
+and returns the whole result.
+
+``dtype="float32"`` runs the Krylov vectors in float32 / complex64 (a
+complex start vector stays complex128, as in the JAX package) with the
+plain-Lanczos convergence test at 1e-5.
 """
 
 from __future__ import annotations
@@ -38,6 +46,8 @@ from .hamiltonian import (build_sector_hamiltonian, assemble_dense,
                           make_matvec_op)
 from .lanczos import (_sizes, eigs_lanczos_op, lanczos_tridiag_op,
                       tridiag_eigh)
+from .parallel.hxv import solve_sector_sharded
+from .parallel.mesh import rows_sharded, site_chunk, sites_sharded
 
 
 @dataclass
@@ -132,9 +142,16 @@ def _draw_v0(cfg: EDConfig, cplx: bool, dim: int, rng, device):
     v0 = rng.normal(size=dim)
     if cplx:
         v0 = v0 + 1j * rng.normal(size=dim)
-    v0 = torch.as_tensor(v0, dtype=torch.complex128 if cplx
-                         else torch.float64, device=device)
+    v0 = torch.as_tensor(v0, device=device).to(
+        torch.complex128 if cplx else getattr(torch, cfg.dtype))
     return v0 / torch.linalg.vector_norm(v0)
+
+
+def _plain_tol(cfg: EDConfig) -> float:
+    """The plain-Lanczos convergence test's tolerance: float32-class
+    Krylov jitters E0 at ~1e-6, so 1e-5 there."""
+    return max(cfg.lanc_tolerance,
+               1e-5 if cfg.dtype == "float32" else 1e-14)
 
 
 def _tridiag_e0(al, be, k: int) -> float:
@@ -185,10 +202,16 @@ def _log_restart(log, cfg, what, dim, neigen, ncv, niter):
 
 
 def _solve_sector_lanczos(cfg: EDConfig, ham, neigen: int, rng, device,
-                          v0=None, timers=None, niter_mem=None, log=None):
+                          v0=None, timers=None, niter_mem=None, log=None,
+                          mesh=None):
     from contextlib import nullcontext
     tm = timers if timers is not None else (lambda name: nullcontext())
     sec = ham.sector
+    if rows_sharded(mesh) and sec.dim >= cfg.shard_dim_threshold:
+        # the row-sharded solve over the mesh (the reference's MPI sector
+        # solve, ED_MAIN.f90:284-327)
+        with tm("diag.sharded"):
+            return solve_sector_sharded(cfg, ham, neigen, rng, mesh, v0=v0)
     with tm("diag.encode"):
         spec, arrays, blocks = make_matvec_op(ham, cfg, device)
     cplx = spec[-1].startswith("complex")
@@ -217,7 +240,7 @@ def _solve_sector_lanczos(cfg: EDConfig, ham, neigen: int, rng, device,
     # numerics) that parity with the reference is held to.
     from .lanczos import lanczos_rebuild_gs_op
     niter_max = min(sec.dim, cfg.lanc_niter)
-    tol = max(cfg.lanc_tolerance, 1e-14)
+    tol = _plain_tol(cfg)
     q = max(32, niter_max // 4)
     hint = niter_mem.get(sec.index) if niter_mem is not None else None
     ni = niter_max if hint is None \
@@ -226,8 +249,8 @@ def _solve_sector_lanczos(cfg: EDConfig, ham, neigen: int, rng, device,
         with tm("diag.tridiag"):
             al, be, ns_ = lanczos_tridiag_op(spec, blocks, arrays, v0, ni)
         n = max(int(ns_), 1)
-        al_h = al[:n].cpu().numpy()
-        be_h = be[:n].cpu().numpy()
+        al_h = al[:n].cpu().numpy().astype(np.float64)
+        be_h = be[:n].cpu().numpy().astype(np.float64)
         if n < ni or ni >= niter_max:
             break    # breakdown (exact subspace) or at the cap
         # converged if the last 8 steps moved E0 by < tol
@@ -289,8 +312,8 @@ def _solve_deferred_ragged(cfg: EDConfig, tasks, results, rng, device,
             spec_p = blocks_p = None
             ops = []
             V0 = torch.zeros((len(ts), ddw_pad * dup_pad),
-                             dtype=torch.complex128 if cplx else torch.float64,
-                             device=device)
+                             dtype=torch.complex128 if cplx
+                             else getattr(torch, cfg.dtype), device=device)
             for s, (sec, ham, neigen, v0) in enumerate(ts):
                 sp, ar, bl = make_padded_matvec_op(ham, cfg, ddw_pad, dup_pad,
                                                    nnz_up, nnz_dw, device)
@@ -356,7 +379,7 @@ def _solve_deferred_plain(cfg: EDConfig, tasks, results, rng, device,
     niter_maxes = [min(t[0].dim, cfg.lanc_niter) for t in tasks]
     nm = max(niter_maxes)
     q = max(32, nm // 4)
-    tol = max(cfg.lanc_tolerance, 1e-14)
+    tol = _plain_tol(cfg)
     hints = [niter_mem.get(t[0].index) if niter_mem is not None
              else None for t in tasks]
     ni = nm if any(h is None for h in hints) \
@@ -364,8 +387,8 @@ def _solve_deferred_plain(cfg: EDConfig, tasks, results, rng, device,
     while True:
         with tm("diag.tridiag"):
             al, be, ns_ = sweep_tridiag(spec, arrays, ni, V0)
-            al_h = al.cpu().numpy()                     # [ni, S]
-            be_h = be.cpu().numpy()
+            al_h = al.cpu().numpy().astype(np.float64)  # [ni, S]
+            be_h = be.cpu().numpy().astype(np.float64)
             ns_h = ns_.cpu().numpy()
         if ni >= nm:
             break
@@ -405,11 +428,16 @@ def _solve_deferred_plain(cfg: EDConfig, tasks, results, rng, device,
 def diagonalize(cfg: EDConfig, bath: Bath, hloc: np.ndarray,
                 state: Optional[DiagState] = None,
                 suffix: str = "", log=None, timers=None,
-                device="cuda") -> tuple:
+                device="cuda", mesh=None) -> tuple:
     """Full sector sweep. Returns (StateList, zeta, DiagState).
 
     timers: optional timer.Timers — accumulates the sweep's sub-stages
-    (ham assembly / Krylov routes / dense eigh)."""
+    (ham assembly / Krylov routes / dense eigh).
+    mesh: optional parallel.Mesh with a 'rows' axis — sectors with dim >=
+    cfg.shard_dim_threshold are then solved row-sharded over it
+    (parallel.hxv); its device replaces `device`."""
+    if mesh is not None:
+        device = mesh.device
     from contextlib import nullcontext
     tm = timers if timers is not None else (lambda name: nullcontext())
     table = sector_table(cfg)
@@ -460,11 +488,14 @@ def diagonalize(cfg: EDConfig, bath: Bath, hloc: np.ndarray,
     v0s = {}
     for pos, (sec, tflag, neigen) in enumerate(sweep):
         lanc_solve = (neigen < sec.dim) and (sec.dim > cfg.lanc_dim_threshold)
+        sharded = rows_sharded(mesh) and sec.dim >= cfg.shard_dim_threshold
         # every Krylov start vector is drawn HERE, in sweep order, so the
-        # serial and the batched routes consume the identical rng stream
+        # serial, sharded and batched routes consume the identical rng
+        # stream
         if lanc_solve:
             v0s[pos] = _draw_v0(cfg, struct_cplx, sec.dim, rng, device)
-        if lanc_solve and len(sec.blocks) == 1 and not struct_mix:
+        if lanc_solve and len(sec.blocks) == 1 and not struct_mix \
+                and not sharded:
             key = ("sweep",) if plain \
                 else (struct_cplx, 1 << (sec.dim - 1).bit_length())
             routes.append(key)
@@ -489,7 +520,7 @@ def diagonalize(cfg: EDConfig, bath: Bath, hloc: np.ndarray,
                     evals, evecs = _solve_sector_lanczos(
                         cfg, ham, neigen, rng, device, v0=v0s.pop(pos),
                         timers=timers, niter_mem=state.lanc_niter_sector,
-                        log=log)
+                        log=log, mesh=mesh)
             else:
                 with tm("diag.dense_eigh"):
                     evals, evecs = _solve_sector_dense(ham, neigen, device)
@@ -652,17 +683,17 @@ def diagonalize_sites(cfg: EDConfig, baths, hlocs, states=None, log=None,
     one [active sites, dim] draw per stacked sector (a second one for a
     complex operator), one draw per site and sector on the per-site route.
 
-    `mesh` (the site-sharded form) is not ported and raises.
+    `mesh`: optional (sites, rows) parallel.Mesh — the dense eigh batch and
+    the stacked large-sector restart split their site axis over 'sites'
+    (the reference's MPI site distribution, ED_MAIN.f90:576-678), and the
+    per-site fallback row-shards sectors above cfg.shard_dim_threshold
+    over 'rows'; its device replaces `device`.
 
     Returns (list of StateList, list of zeta, list of DiagState).
     """
     from contextlib import nullcontext
     from .device import resolve
-    if mesh is not None:
-        raise NotImplementedError(
-            "diagonalize_sites(mesh=...): the site-sharded sweep waits for "
-            "parallel/ (ROADMAP.md §1 item 4)")
-    device = resolve(device)
+    device = mesh.device if mesh is not None else resolve(device)
     tm = timers if timers is not None else (lambda name: nullcontext())
     nsites = len(baths)
     if cfgs is None:
@@ -710,8 +741,8 @@ def diagonalize_sites(cfg: EDConfig, baths, hlocs, states=None, log=None,
                         cfgs[i], sec, baths[i], hlocs[i]))
                     for i in idx])
             with tm("diag.dense_eigh"):
-                evals_b, evecs_b = torch.linalg.eigh(
-                    torch.as_tensor(Hs, device=device))
+                evals_b, evecs_b = _sites_eigh(
+                    torch.as_tensor(Hs, device=device), mesh)
                 evals_b = evals_b.cpu().numpy()
             for bi, i in enumerate(idx):
                 ne = neigen[i]
@@ -742,14 +773,14 @@ def diagonalize_sites(cfg: EDConfig, baths, hlocs, states=None, log=None,
             v0 = rng.normal(size=(len(idx), sec.dim))
             if cplx:
                 v0 = v0 + 1j * rng.normal(size=(len(idx), sec.dim))
-            v0 = torch.as_tensor(v0, dtype=torch.complex128 if cplx
-                                 else torch.float64, device=device)
+            v0 = torch.as_tensor(v0, device=device).to(
+                torch.complex128 if cplx else getattr(torch, cfg.dtype))
             ncv = _ncv(cfg, sec.dim, ne)
             with tm("diag.thick_restart"):
                 evals_b, evecs_b, niter = eigs_lanczos_op_stacked(
                     spec, blocks, arrays_stacked, v0, ne, ncv,
                     maxiter=min(sec.dim, cfg.lanc_niter),
-                    tol=cfg.lanc_tolerance)
+                    tol=cfg.lanc_tolerance, mesh=mesh)
             del arrays_stacked, v0
             _log_restart(log, cfg, f"sector {sec.index} dim={sec.dim} "
                          f"sites={len(idx)}", sec.dim, ne, ncv, niter)
@@ -767,7 +798,8 @@ def diagonalize_sites(cfg: EDConfig, baths, hlocs, states=None, log=None,
                 with tm("diag.krylov_serial"):
                     evals, evecs = _solve_sector_lanczos(
                         cfg, hams[i], neigen[i], rng, device, timers=timers,
-                        niter_mem=states[i].lanc_niter_sector, log=log)
+                        niter_mem=states[i].lanc_niter_sector, log=log,
+                        mesh=mesh)
                 _append_eigenvalues(suffixes[i], sec, evals)
                 _collect(cfg, table, slists[i], sec, evals, evecs,
                          finite_t, states[i], oldzero, i, twin=tflag)
@@ -783,6 +815,21 @@ def diagonalize_sites(cfg: EDConfig, baths, hlocs, states=None, log=None,
             f"{time.time() - t0:.2f}s: Egs="
             + " ".join(f"{s.emin:.12f}" for s in slists))
     return slists, zetas, states
+
+
+def _sites_eigh(Hs, mesh):
+    """Batched eigh of a [S, n, n] site stack; with a sites mesh, the stack
+    is zero-padded to the axis multiple, each sites rank solves its chunk
+    and the results are all-gathered (the padding is discarded)."""
+    if not sites_sharded(mesh):
+        return torch.linalg.eigh(Hs)
+    S = Hs.shape[0]
+    npad = (-S) % mesh.shape["sites"]
+    if npad:
+        Hs = torch.cat([Hs, Hs.new_zeros((npad,) + Hs.shape[1:])])
+    e, v = torch.linalg.eigh(Hs[site_chunk(mesh, Hs.shape[0])])
+    return (mesh.all_gather("sites", e)[:S],
+            mesh.all_gather("sites", v)[:S])
 
 
 def _collect(cfg, table, slist, sec, evals, evecs, finite_t, state,

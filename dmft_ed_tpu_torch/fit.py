@@ -27,6 +27,7 @@ from scipy.optimize import minimize
 from .config import EDConfig
 from .bath import unpack_bath, pack_bath, save_bath
 from .bath_fns import delta, fdelta, g0and, f0and
+from .parallel.mesh import site_chunk, sites_sharded
 
 
 def _param_bound(xw: np.ndarray) -> float:
@@ -232,15 +233,18 @@ def chi2_fitgf_sites(cfg: EDConfig, fgs, baths_flat, hlocs,
 
     fgs: [S, Nspin, Nspin, Norb, Norb, L]; baths_flat: [S, Nb]; the
     sites' bath structures and replica masks must agree (ValueError
-    otherwise). `mesh` (the site-sharded form) is not ported and raises.
+    otherwise).
+    mesh: optional parallel.Mesh with a 'sites' axis that divides S (as in
+    the reference, the fit stays whole otherwise) — each sites rank then
+    evaluates its sites' objective terms and gradients, and every
+    evaluation all-gathers them and sums them in the unsharded order, so
+    every rank runs the same L-BFGS-B iterates as the unsharded fit (the
+    mesh form of the reference's per-rank site fits,
+    ED_FIT_CHI2.f90:187-225). The mesh's device replaces `device`.
     Returns the updated [S, Nb] bath stack; each site's bath is saved with
     its suffix (``<hfile>_ineq####.restart`` by default)."""
     from .device import resolve
-    if mesh is not None:
-        raise NotImplementedError(
-            "chi2_fitgf_sites(mesh=...): the site-sharded fit waits for "
-            "parallel/ (ROADMAP.md §1 item 4)")
-    device = resolve(device)
+    device = mesh.device if mesh is not None else resolve(device)
     S = len(baths_flat)
     cfgs = list(cfgs) if cfgs is not None else [cfg] * S
     masks = list(masks) if masks is not None else [None] * S
@@ -298,18 +302,30 @@ def chi2_fitgf_sites(cfg: EDConfig, fgs, baths_flat, hlocs,
             c = c + torch.sum(torch.abs(ra) ** 2 / W)
         return c + _box_penalty(xv, bnd)
 
+    # the sites this rank evaluates: all, or its chunk of the sites axis
+    split = sites_sharded(mesh) and S % mesh.shape["sites"] == 0
+    mine = range(S)[site_chunk(mesh, S)] if split else range(S)
+
     def per_site(scheme, xmat, targets, targets_an):
-        return torch.stack([site_chi2(scheme, xmat[i], i, targets,
-                                      targets_an) for i in range(S)])
+        """[len(mine)] chi^2 of this rank's sites (xmat holds their rows)."""
+        return torch.stack([site_chi2(scheme, xmat[j], i, targets,
+                                      targets_an)
+                            for j, i in enumerate(mine)])
+
+    def gathered(x):
+        return mesh.all_gather("sites", x) if split else x
 
     def make_joint(scheme, targets, targets_an):
         def fun(xflat):
-            xmat = torch.tensor(np.asarray(xflat, dtype=np.float64
-                                           ).reshape(S, n),
-                                device=device, requires_grad=True)
-            c = torch.sum(per_site(scheme, xmat, targets, targets_an))
-            c.backward()
-            return float(c.detach()), xmat.grad.cpu().numpy().ravel()
+            xall = np.asarray(xflat, dtype=np.float64).reshape(S, n)
+            xmat = torch.tensor(xall[mine.start:mine.stop], device=device,
+                                requires_grad=True)
+            c_loc = per_site(scheme, xmat, targets, targets_an)
+            torch.sum(c_loc).backward()
+            # the gathered terms summed as the unsharded objective sums
+            # them: one reduction over all S, in site order
+            c = torch.sum(gathered(c_loc.detach()))
+            return float(c), gathered(xmat.grad).cpu().numpy().ravel()
         return fun
 
     opts = {"maxiter": cfg.cg_niter, "ftol": cfg.cg_ftol * 1e-3,
@@ -330,8 +346,10 @@ def chi2_fitgf_sites(cfg: EDConfig, fgs, baths_flat, hlocs,
     res = minimize(fun, x0, jac=True, method="L-BFGS-B", options=opts)
     xmat = res.x.reshape(S, n)
     with torch.no_grad():
-        per = per_site(cfg.cg_scheme, torch.as_tensor(xmat, device=device),
-                       tgts, tgts_an).cpu().numpy()
+        per = gathered(per_site(
+            cfg.cg_scheme, torch.as_tensor(xmat[mine.start:mine.stop],
+                                           device=device),
+            tgts, tgts_an)).cpu().numpy()
     # fallback threshold RELATIVE to the weighted target norm: at strong
     # coupling / small baths the true minimum routinely exceeds any
     # absolute cutoff, which would silently refit every site serially

@@ -13,8 +13,9 @@ except complex chains against real Ozaki operators); then, when the
 device batches, the ragged merge: groups whose flat dims share a
 power-of-two class zero-embed into one bucket shape and run as one stacked
 scan; then stacked scans of structurally identical operators, the same
-sector of several sites on the member axis. The mesh-sharded route is not
-ported (ROADMAP.md §1 item 4).
+sector of several sites on the member axis. With a mesh (HamCache(...,
+mesh=)), a target sector of dim >= cfg.shard_dim_threshold runs first, its
+channels batched on row-sharded vectors (``_run_sharded``).
 """
 
 from __future__ import annotations
@@ -30,18 +31,24 @@ from .bath import Bath
 from .eigenspace import StateList
 from .hamiltonian import (SectorHamiltonian, build_sector_hamiltonian,
                           make_matvec_op)
-from .lanczos import tridiag_eigh
+from .lanczos import lanczos_tridiag_op, tridiag_eigh
+from .parallel.hxv import shard_flat, sharded_sector_op
+from .parallel.mesh import rows_sharded
 
 
 class HamCache:
-    """Per-solve cache of sector Hamiltonians and their device operators."""
+    """Per-solve cache of sector Hamiltonians and their device operators
+    (with a mesh, also of the row-sharded local operators; the mesh's
+    device replaces `device`)."""
 
     def __init__(self, cfg: EDConfig, bath: Bath, hloc: np.ndarray,
-                 device="cuda"):
+                 device="cuda", mesh=None):
         self.cfg, self.bath, self.hloc = cfg, bath, hloc
-        self.device = device
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else device
         self._ham: Dict[int, SectorHamiltonian] = {}
         self._op: Dict[int, tuple] = {}
+        self._op_sharded: Dict[int, tuple] = {}
 
     def ham(self, sector: Sector) -> SectorHamiltonian:
         key = sector.index
@@ -56,6 +63,20 @@ class HamCache:
             self._op[key] = make_matvec_op(self.ham(sector), self.cfg,
                                            self.device)
         return self._op[key]
+
+    def sharded(self, sector: Sector) -> bool:
+        """Whether this sector's Krylov runs row-sharded over the mesh."""
+        return rows_sharded(self.mesh) \
+            and sector.dim >= self.cfg.shard_dim_threshold
+
+    def op_sharded(self, sector: Sector):
+        """(spec, arrays, blocks, sector_padded) of this rank's row-sharded
+        local operator (parallel.hxv.sharded_sector_op)."""
+        key = sector.index
+        if key not in self._op_sharded:
+            self._op_sharded[key] = sharded_sector_op(
+                self.ham(sector), self.cfg, self.mesh)
+        return self._op_sharded[key]
 
 
 def accumulate_poles(z: np.ndarray, weights: np.ndarray, poles: np.ndarray,
@@ -147,6 +168,9 @@ class ResolventBatch:
             site, _ = key
             jsec = self.jsecs[key]
             cache = self.sites[site][0]
+            if cache.sharded(jsec):
+                yield from self._run_sharded(site, cache, jsec, joblist)
+                continue
             spec, arrays, blocks = cache.op(jsec)
             nlanc = min(jsec.dim, cfg.lanc_ngfiter)
             entries.append((spec, blocks, arrays, nlanc, joblist, jsec,
@@ -252,14 +276,14 @@ class ResolventBatch:
                     members.append((e, j))
                     mhams.append(h)
             spec, arrays = make_sweep_op(cfg, mhams, dev)
-            dt = np.complex128 if cplx else np.float64
+            dt = np.complex128 if cplx else np.dtype(cfg.dtype)
             V0 = tuple(torch.as_tensor(np.asarray(j[0], dtype=dt).reshape(
                 e[5].blocks[0].ddw, e[5].blocks[0].dup), device=dev)
                 for e, j in members)
             nlanc = max(e[3] for e in ents)
             al, be, ns = sweep_tridiag(spec, arrays, nlanc, V0)
-            al = al.cpu().numpy()                       # [nlanc, S]
-            be = be.cpu().numpy()
+            al = al.cpu().numpy().astype(np.float64)    # [nlanc, S]
+            be = be.cpu().numpy().astype(np.float64)
             ns = ns.cpu().numpy()
             for s, (e, j) in enumerate(members):
                 # clamp to the member's own chain length (prefix-stable
@@ -335,3 +359,25 @@ class ResolventBatch:
             # spurious duplicate Ritz values)
             yield from self._weights_poles(e[6], e[4], al[si], be[si],
                                            np.minimum(ns[si], e[3]))
+
+    def _run_sharded(self, site, cache, jsec, joblist):
+        """Row-sharded batched tridiagonalization of one large target
+        sector, the distributed GF pass (the reference scatters excitation
+        vectors and Lanczos-iterates under MPI, ED_GF_NORMAL.f90:156-187):
+        the channel batch [B, local rows] through lanczos_tridiag_op."""
+        cfg = self.cfg
+        spec, arrays, blocks, sec_p = cache.op_sharded(jsec)
+        nlanc = min(jsec.dim, cfg.lanc_ngfiter)
+        # complex128 for a complex operator, else cfg.dtype (the JAX
+        # package's choice); complex excitation vectors (chi's combined
+        # channels) against a real operator keep their imaginary part
+        dt = np.complex128 if spec[-1].startswith("complex") \
+            else np.dtype(cfg.dtype)
+        if any(np.iscomplexobj(j[0]) for j in joblist):
+            dt = np.result_type(dt, np.complex64)
+        V0 = shard_flat(np.stack([j[0] for j in joblist]).astype(dt), jsec,
+                        sec_p, cache.mesh, getattr(torch, np.dtype(dt).name))
+        al, be, ns = lanczos_tridiag_op(spec, blocks, arrays, V0, nlanc,
+                                        cache.mesh)
+        yield from self._weights_poles(site, joblist, al.T.cpu().numpy(),
+                                       be.T.cpu().numpy(), ns.cpu().numpy())

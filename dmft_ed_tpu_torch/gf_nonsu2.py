@@ -126,9 +126,10 @@ def gf_nonsu2_plan(cfg: EDConfig, slist: StateList, bath: Bath,
 
 def build_gf_nonsu2(cfg: EDConfig, slist: StateList, zeta: float,
                     bath: Bath, hloc: np.ndarray, finite_t: bool, log=None,
-                    device="cuda"):
-    """Returns (Gmats, Greal) [Nspin,Nspin,Norb,Norb,L]."""
-    cache = HamCache(cfg, bath, hloc, device)
+                    device="cuda", mesh=None):
+    """Returns (Gmats, Greal) [Nspin,Nspin,Norb,Norb,L]; row-sharded above
+    cfg.shard_dim_threshold with a `mesh`."""
+    cache = HamCache(cfg, bath, hloc, device, mesh)
     batch = ResolventBatch(cfg, cache, slist.emin, zeta, finite_t)
     finalize = gf_nonsu2_plan(cfg, slist, bath, batch, log=log)
     return finalize(batch.run())

@@ -33,9 +33,11 @@ def _gf_shape(cfg, L):
 
 def build_gf_normal(cfg: EDConfig, slist: StateList, zeta: float,
                     bath: Bath, hloc: np.ndarray, finite_t: bool,
-                    log=None, device="cuda") -> Tuple[np.ndarray, np.ndarray]:
-    """Returns (Gmats, Greal) [Nspin,Nspin,Norb,Norb,L]."""
-    cache = HamCache(cfg, bath, hloc, device)
+                    log=None, device="cuda",
+                    mesh=None) -> Tuple[np.ndarray, np.ndarray]:
+    """Returns (Gmats, Greal) [Nspin,Nspin,Norb,Norb,L]. `mesh`: sectors
+    above cfg.shard_dim_threshold run their chains row-sharded."""
+    cache = HamCache(cfg, bath, hloc, device, mesh)
     batch = ResolventBatch(cfg, cache, slist.emin, zeta, finite_t)
     finalize = gf_normal_plan(cfg, slist, bath, batch, log=log)
     return finalize(batch.run())

@@ -31,10 +31,11 @@ from . import grids
 
 def build_gf_superc(cfg: EDConfig, slist: StateList, zeta: float,
                     bath: Bath, hloc: np.ndarray, finite_t: bool, log=None,
-                    device="cuda"):
+                    device="cuda", mesh=None):
     """Returns (Gmats, Greal, Fmats, Freal); all channels batched per
-    target sector (gf_common.ResolventBatch)."""
-    cache = HamCache(cfg, bath, hloc, device)
+    target sector (gf_common.ResolventBatch), row-sharded above
+    cfg.shard_dim_threshold with a `mesh`."""
+    cache = HamCache(cfg, bath, hloc, device, mesh)
     batch = ResolventBatch(cfg, cache, slist.emin, zeta, finite_t)
     finalize = gf_superc_plan(cfg, slist, batch, log=log)
     return finalize(batch.run())

@@ -589,18 +589,29 @@ def np_unflatten_blocks(x: np.ndarray, sector: Sector):
 # A complex vector against a real dense or Ozaki operator goes through as
 # its real and imaginary parts (``_real_linear``).
 
+def _rdtype(cfg: EDConfig):
+    """The working real dtype, cfg.dtype ("float64" or "float32")."""
+    if cfg.dtype not in ("float64", "float32"):
+        raise ValueError(f"dtype={cfg.dtype!r}: float64 or float32")
+    return getattr(torch, cfg.dtype)
+
+
 def _vdtype(ham: SectorHamiltonian, cfg: EDConfig):
-    if cfg.dtype != "float64":
-        raise NotImplementedError(
-            f"dtype={cfg.dtype!r}: the port runs float64/complex128 only")
+    """(is_cplx, vector dtype): cfg.dtype for a real operator, complex128
+    (float64) or complex64 (float32) for a complex one."""
     is_cplx = np.issubdtype(ham.dtype, np.complexfloating)
-    return is_cplx, (torch.complex128 if is_cplx else torch.float64)
+    if not is_cplx:
+        return False, _rdtype(cfg)
+    return True, torch.complex128 if cfg.dtype == "float64" \
+        else torch.complex64
 
 
 def _ozaki_params(cfg: EDConfig, is_cplx: bool):
-    """(nslices, bits), or (0, 0) for exact f64 matmuls: Ozaki digits serve
-    real operators only."""
-    if cfg.matmul_precision.startswith("ozaki") and not is_cplx:
+    """(nslices, bits), or (0, 0) for plain matmuls: Ozaki digits serve
+    real float64 operators only (under float32 an ``ozaki*`` config runs
+    plain float32 products, as in the JAX package)."""
+    if cfg.matmul_precision.startswith("ozaki") and not is_cplx \
+            and cfg.dtype == "float64":
         from .ozaki import parse_precision
         return parse_precision(cfg.matmul_precision)
     return 0, 0
@@ -645,9 +656,16 @@ def _ozaki_right(digits, scales, v, nsl, bits):
     return R.reshape(v.shape[:-1] + (R.shape[-1],))
 
 
-def make_matvec_op(ham: SectorHamiltonian, cfg: EDConfig, device, pad=None):
+def make_matvec_op(ham: SectorHamiltonian, cfg: EDConfig, device, pad=None,
+                   fused=None):
     """Returns (spec, arrays, blocks): use with `apply_op(spec, arrays, V)`
-    or `lanczos.lanczos_tridiag_op`. Every array lives on `device`.
+    or `lanczos.lanczos_tridiag_op`. Every array lives on `device`; the
+    diagonal takes cfg.dtype, every other operator the vector dtype
+    (_vdtype), Ozaki digits only under float64.
+
+    fused: encode both-dense-Ozaki blocks as one fused product (kind "ozf");
+    None for device.ozaki_fused()'s choice (the row-sharded operator asks
+    for False: its dw side reads gathered rows, its up side local ones).
 
     pad=(ddw_pad, dup_pad, nnz_up, nnz_dw) zero-embeds a single-block,
     no-mix sector operator into a (ddw_pad, dup_pad) block (the ragged-
@@ -659,10 +677,12 @@ def make_matvec_op(ham: SectorHamiltonian, cfg: EDConfig, device, pad=None):
     if pad is not None and (len(sec.blocks) != 1 or ham.mix):
         raise ValueError("padded op requires a single block and no mix terms")
     is_cplx, vdtype = _vdtype(ham, cfg)
-    rdtype = torch.float64
+    rdtype = _rdtype(cfg)
     thr = cfg.dense_matmul_threshold
     ozaki_n, ozaki_b = _ozaki_params(cfg, is_cplx)
-    from .device import ozaki_fused
+    if fused is None:
+        from .device import ozaki_fused
+        fused = ozaki_fused()
 
     arrays = []
 
@@ -687,7 +707,7 @@ def make_matvec_op(ham: SectorHamiltonian, cfg: EDConfig, device, pad=None):
         encode dense-Ozaki and the fused product is asked for
         (device.ozaki_fused): one K-concat product for Hdw@V + V@HupT
         (ozaki.fused_two_sided), with the raw f64 matrices pushed."""
-        if not ozaki_n or not ozaki_fused():
+        if not ozaki_n or not fused:
             return None
         if (max(coo_up.shape) if up_pad is None else up_pad) > thr or \
                 (max(coo_dw.shape) if dw_pad is None else dw_pad) > thr:
@@ -801,9 +821,21 @@ def _real_linear(fn, v):
     return fn(v)
 
 
+def _promoted(dat, v):
+    """dat cast to the dtype its product with v takes (the JAX package
+    promotes a float32 operator against a float64 or complex128 vector;
+    torch's matmul does not). A real dat meets a complex v's parts."""
+    vd = v.real.dtype if v.is_complex() and not dat.is_complex() else v.dtype
+    dt = torch.promote_types(dat.dtype, vd)
+    return dat if dat.dtype == dt else dat.to(dt)
+
+
 def _dense_apply(dat, v, side):
     """dat @ v (left) or v @ dat^T (right); a complex v against a real dat
     goes through as its real and imaginary parts."""
+    dat = _promoted(dat, v)
+    if dat.is_complex() and v.dtype != dat.dtype:
+        v = v.to(dat.dtype)
     fn = (lambda x: x @ dat.T) if side == "right" else (lambda x: dat @ x)
     return fn(v) if dat.is_complex() else _real_linear(fn, v)
 
@@ -840,16 +872,34 @@ def _mix_batched(upT, dw, coeff, v):
     """Σ_l coeff[l] · dw[l] @ v @ upT[l] for v [..., m, k]: the mix terms
     of one (src, dst) block pair in two batched products and one weighted
     sum over l."""
+    upT, dw = _promoted(upT, v), _promoted(dw, v)
+    if upT.is_complex() and v.dtype != upT.dtype:
+        v = v.to(upT.dtype)
+
     def fn(x):
         return torch.matmul(dw, torch.matmul(x.unsqueeze(-3), upT))
     z = fn(v) if upT.is_complex() else _real_linear(fn, v)
     return torch.sum(coeff[:, None, None] * z, dim=-3)
 
 
-def apply_op(spec, arrays, V):
+def apply_op(spec, arrays, V, gather=None):
     """H·V in the spec/arrays form; V is a tuple of per-block tensors
-    [..., ddw, dup] (leading batch dims allowed)."""
+    [..., ddw, dup] (leading batch dims allowed).
+
+    gather: for a row-sharded local operator (parallel.hxv), the map from a
+    block's local rows to all of them; every dw-side product then reads
+    the gathered block (one gather per block that a dw side reads), the
+    diagonal and the up side the local rows."""
     blocks, diag_idx, hup_spec, hdw_spec, mix_spec, _ = spec
+    full = {}
+
+    def rows_of(bi):
+        if gather is None:
+            return V[bi]
+        if bi not in full:
+            full[bi] = gather(V[bi])
+        return full[bi]
+
     Y = []
     for bi, (ddw, dup) in enumerate(blocks):
         v = V[bi]
@@ -862,12 +912,13 @@ def apply_op(spec, arrays, V):
         r = _app(hup_spec[bi], arrays, v, "right", dup)
         if r is not None:
             y = y + r
-        r = _app(hdw_spec[bi], arrays, v, "left", ddw)
-        if r is not None:
+        if hdw_spec[bi][0] != "none":
+            r = _app(hdw_spec[bi], arrays, rows_of(bi), "left", ddw)
             y = y + r
         Y.append(y)
     for (src, dst, up, dw, cidx) in mix_spec:
-        v = V[src]
+        v = V[src] if dw is None and (up is None or up[0] != "bmix") \
+            else rows_of(src)
         if up is not None and up[0] == "bmix":
             Y[dst] = Y[dst] + _mix_batched(arrays[up[1]], arrays[up[2]],
                                            arrays[cidx], v)

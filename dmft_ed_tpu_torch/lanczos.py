@@ -14,10 +14,20 @@ leading batch dimensions or, for the stacked thick restart, a loop over the
 members. Dot products are the exact ``vdot`` form (``_pdot_pair``), the
 reference's CPU semantics. The thick restart's Rayleigh–Ritz step runs on
 the host, as in the reference: ``betas`` and ``T`` are read once per
-restart.
+restart. Coefficients take the vectors' real dtype (float32 for float32 /
+complex64 vectors, as in the reference).
 
-Not ported: the ``mesh=`` (site-sharded) form of the stacked restart
-(``parallel/``, ROADMAP.md).
+Meshes (parallel/): with ``mesh=``, the ``*_op`` engines run on
+row-sharded sector vectors — flat vectors of this rank's rows of each
+(row-padded) block, under parallel.hxv's local operator. They are the
+reference's block-tuple Krylov (its ``lanczos_tridiag_blocks``,
+``_batched``, ``_expand_blocks``, ``eigs_lanczos_blocks``): every dot and
+Gram-Schmidt projection is summed locally, then all-reduced over the
+mesh's rows group (the reference's MPI allreduce inside P-ARPACK,
+ED_HAMILTONIAN_STORED_HxV.f90:147-197), and the matvec, eager (a CUDA
+graph cannot hold a gloo collective), all-gathers the blocks its dw side
+reads. ``eigs_lanczos_op_stacked(mesh=)`` splits its members over the
+sites group.
 """
 
 from __future__ import annotations
@@ -26,8 +36,16 @@ import numpy as np
 import torch
 
 from .hamiltonian import apply_op, flatten_blocks, unflatten_blocks
+from .parallel.hxv import row_gather
+from .parallel.mesh import rows_sharded, site_chunk, sites_sharded
 
 _BREAKDOWN = 1e-13
+
+
+def _real_dtype(dt):
+    """float64 for float64 / complex128 vectors, float32 otherwise."""
+    return torch.float64 if dt in (torch.float64, torch.complex128) \
+        else torch.float32
 
 
 def _pdot_pair(a, b, dims=None):
@@ -35,6 +53,19 @@ def _pdot_pair(a, b, dims=None):
     p = torch.conj(a) * b if a.is_complex() else a * b
     s = torch.sum(p) if dims is None else torch.sum(p, dim=dims)
     return s.real if s.is_complex() else s
+
+
+def _rows_sum(x, mesh):
+    """A partial sum over this rank's rows, summed over the mesh's rows
+    group (unchanged without a row split)."""
+    return mesh.all_reduce("rows", x) if rows_sharded(mesh) else x
+
+
+def _norm(v, mesh):
+    """||v|| over the whole vector (every rank's rows under a mesh)."""
+    if not rows_sharded(mesh):
+        return torch.linalg.vector_norm(v)
+    return torch.sqrt(mesh.all_reduce("rows", _pdot_pair(v, v)))
 
 
 def tridiag_eigh(alpha: np.ndarray, beta: np.ndarray):
@@ -48,25 +79,27 @@ def tridiag_eigh(alpha: np.ndarray, beta: np.ndarray):
     return sla.eigh_tridiagonal(np.asarray(alpha), np.asarray(beta[1:n]))
 
 
-def _lanczos_tridiag_impl(matvec, v0, niter: int):
+def _lanczos_tridiag_impl(matvec, v0, niter: int, mesh=None):
     """3-term recurrence from normalized v0 [..., dim] (leading dims are
-    independent chains). Returns (alphas [niter, ...], betas [niter, ...]
-    with the beta[0] = 1 sentinel, nsteps [...]); after a breakdown
-    (beta < 1e-13) a chain is frozen and nsteps counts its usable steps."""
+    independent chains; with a row-sharded `mesh`, dim is this rank's
+    rows). Returns (alphas [niter, ...], betas [niter, ...] with the
+    beta[0] = 1 sentinel, nsteps [...]); after a breakdown (beta < 1e-13)
+    a chain is frozen and nsteps counts its usable steps."""
     lead = v0.shape[:-1]
     dev = v0.device
+    rdt = _real_dtype(v0.dtype)
     v_prev = torch.zeros_like(v0)
     v = v0
-    b_prev = torch.zeros(lead, dtype=torch.float64, device=dev)
+    b_prev = torch.zeros(lead, dtype=rdt, device=dev)
     alive = torch.ones(lead, dtype=torch.bool, device=dev)
-    zero = torch.zeros((), dtype=torch.float64, device=dev)
-    one = torch.ones((), dtype=torch.float64, device=dev)
+    zero = torch.zeros((), dtype=rdt, device=dev)
+    one = torch.ones((), dtype=rdt, device=dev)
     alphas, betas, alives = [], [], []
     for _ in range(niter):
         w = matvec(v)
-        a = _pdot_pair(v, w, -1)
+        a = _rows_sum(_pdot_pair(v, w, -1), mesh)
         w = w - a[..., None] * v - b_prev[..., None] * v_prev
-        b = torch.sqrt(_pdot_pair(w, w, -1))
+        b = torch.sqrt(_rows_sum(_pdot_pair(w, w, -1), mesh))
         ok = alive & (b > _BREAKDOWN)
         v_next = torch.where(ok[..., None],
                              w / torch.where(b > 0, b, one)[..., None],
@@ -81,8 +114,8 @@ def _lanczos_tridiag_impl(matvec, v0, niter: int):
     alphas = torch.stack(alphas)
     betas = torch.stack(betas)
     nsteps = torch.stack(alives).to(torch.int64).sum(0)
-    betas_out = torch.cat([torch.ones((1,) + lead, dtype=torch.float64,
-                                      device=dev), betas[:-1]])
+    betas_out = torch.cat([torch.ones((1,) + lead, dtype=rdt, device=dev),
+                           betas[:-1]])
     return alphas, betas_out, nsteps
 
 
@@ -127,43 +160,50 @@ class _Graphed:
         return y_out.clone()
 
 
-def _op_matvec(spec, blocks, arrays):
+def _op_matvec(spec, blocks, arrays, mesh=None):
     """The sector matvec on flat vectors. On a card, a multi-block
     operator without Ozaki terms (superc, nonsu2) replays from a CUDA
     graph (_Graphed): the same kernels, bitwise the same result. An
     operator with Ozaki terms (whose kernel launches through ctypes)
-    stays eager. Leading batch axes of x pass through."""
+    stays eager, as does a row-sharded one (its gathers are collectives).
+    Leading batch axes of x pass through."""
+    gather = row_gather(mesh)
+
     def mv(x):
         return flatten_blocks(apply_op(spec, arrays,
-                                       unflatten_blocks(x, blocks)))
-    if len(blocks) > 1 and arrays and arrays[0].is_cuda \
+                                       unflatten_blocks(x, blocks), gather))
+    if len(blocks) > 1 and arrays and arrays[0].is_cuda and gather is None \
             and not _spec_kinds(spec) & {"ozl", "ozr", "ozf"}:
         return _Graphed(mv)
     return mv
 
 
-def lanczos_tridiag_op(spec, blocks, arrays, v0, niter: int):
+def lanczos_tridiag_op(spec, blocks, arrays, v0, niter: int, mesh=None):
     """3-term recurrence with the operator in spec/arrays form (v0 flat
-    [dim]). Returns (alphas [niter], betas [niter], nsteps) on v0's
-    device."""
-    return _lanczos_tridiag_impl(_op_matvec(spec, blocks, arrays), v0, niter)
+    [..., dim]: leading axes are independent chains, the reference's
+    ``lanczos_tridiag_blocks_batched``). Returns (alphas [niter, ...],
+    betas [niter, ...], nsteps [...]) on v0's device, the same on every
+    rank of a `mesh`."""
+    return _lanczos_tridiag_impl(_op_matvec(spec, blocks, arrays, mesh), v0,
+                                 niter, mesh)
 
 
 def lanczos_rebuild_gs_op(spec, blocks, arrays, v0, alphas, betas, y,
-                          n: int):
+                          n: int, mesh=None):
     """Dot-free second pass of the two-pass plain-Lanczos ground state:
     |gs> = Σ_j y_j |v_j>, replaying the recurrence with the stored
-    (alpha, beta) (reference layout, betas[0] = 1 sentinel)."""
-    mv = _op_matvec(spec, blocks, arrays)
+    (alpha, beta) (reference layout, betas[0] = 1 sentinel); normalized
+    over the whole vector (every rank's rows under a `mesh`)."""
+    mv = _op_matvec(spec, blocks, arrays, mesh)
     dev = v0.device
-    alphas = torch.as_tensor(np.asarray(alphas), dtype=torch.float64,
-                             device=dev)
-    betas = torch.as_tensor(np.asarray(betas), dtype=torch.float64,
-                            device=dev)
-    y = torch.as_tensor(np.asarray(y), dtype=torch.float64, device=dev)
-    beta_next = torch.cat([betas[1:], torch.ones(1, dtype=torch.float64,
-                                                 device=dev)])
-    one = torch.ones((), dtype=torch.float64, device=dev)
+    rdt = _real_dtype(v0.dtype)
+
+    def host(x):
+        return torch.as_tensor(np.asarray(x), device=dev).to(rdt)
+
+    alphas, betas, y = host(alphas), host(betas), host(y)
+    beta_next = torch.cat([betas[1:], torch.ones(1, dtype=rdt, device=dev)])
+    one = torch.ones((), dtype=rdt, device=dev)
     v_prev = torch.zeros_like(v0)
     v = v0
     acc = torch.zeros_like(v0)
@@ -174,7 +214,7 @@ def lanczos_rebuild_gs_op(spec, blocks, arrays, v0, alphas, betas, y,
         bn = beta_next[j]
         vn = w / torch.where(bn > _BREAKDOWN, bn, one)
         v_prev, v = v, vn
-    return acc / torch.linalg.vector_norm(acc)
+    return acc / _norm(acc, mesh)
 
 
 def lanczos_tridiag_op_stacked(spec, blocks, arrays_stacked, V0,
@@ -197,9 +237,11 @@ def lanczos_tridiag_op_stacked(spec, blocks, arrays_stacked, V0,
 # thick-restart Lanczos with full reorthogonalization (ARPACK replacement)
 # ----------------------------------------------------------------------
 
-def _expand(matvec, V, T, j0: int, m: int):
+def _expand(matvec, V, T, j0: int, m: int, mesh=None):
     """Grow the orthonormal basis V[j0+1..m] and the projection T's columns
-    j0..m-1, in place; returns betas [m - j0] on V's device.
+    j0..m-1, in place; returns betas [m - j0] on V's device. With a
+    row-sharded `mesh`, V holds this rank's rows and every projection is
+    all-reduced.
 
     V: [m+1, dim] with rows <= j0 filled (orthonormal; row j0 the next
     start vector), rows beyond zero, so the full-basis Gram-Schmidt
@@ -207,17 +249,18 @@ def _expand(matvec, V, T, j0: int, m: int):
     (arrowhead + tridiagonal after restarts). Two orthogonalization passes
     give machine-precision orthogonality. A breakdown (beta < 1e-13) is
     masked on the device: the next vector is zero."""
-    one = torch.ones((), dtype=torch.float64, device=V.device)
-    zero = torch.zeros((), dtype=torch.float64, device=V.device)
+    rdt = _real_dtype(V.dtype)
+    one = torch.ones((), dtype=rdt, device=V.device)
+    zero = torch.zeros((), dtype=rdt, device=V.device)
     betas = []
     for j in range(j0, m):
         w = matvec(V[j])
-        h1 = V.conj() @ w
+        h1 = _rows_sum(V.conj() @ w, mesh)
         w = w - h1 @ V
-        h2 = V.conj() @ w
+        h2 = _rows_sum(V.conj() @ w, mesh)
         w = w - h2 @ V
         h = h1 + h2
-        b = torch.sqrt(_pdot_pair(w, w))
+        b = torch.sqrt(_rows_sum(_pdot_pair(w, w), mesh))
         safe = b > _BREAKDOWN
         V[j + 1] = torch.where(safe, one, zero) * w / torch.where(safe, b, one)
         T[:, j] = h
@@ -279,24 +322,26 @@ def _sizes(dim: int, neigen: int, ncv: int, maxiter: int):
 
 
 def eigs_lanczos(matvec, v0, neigen: int, ncv: int, maxiter: int = 512,
-                 tol: float = 1e-12):
+                 tol: float = 1e-12, mesh=None):
     """Lowest `neigen` eigenpairs of the Hermitian operator `matvec` (flat
     [dim] -> [dim]). Thick-restart Lanczos: expand a Krylov basis to ncv
     vectors (full reorthogonalization), Rayleigh–Ritz on the projected
     (ncv x ncv) matrix, restart with the k = neigen best Ritz vectors plus
     the residual direction (ED_DIAG.f90:149-166's sp_eigh / P-ARPACK).
+    With a row-sharded `mesh`, v0 and the eigenvectors are this rank's
+    rows, and every rank takes the same decisions from the same T.
 
     Returns (evals [k_eff] ascending, numpy; evecs [k_eff, dim] on v0's
     device; matvec count)."""
-    dim = v0.shape[0]
+    dim = v0.shape[0] * (mesh.shape["rows"] if rows_sharded(mesh) else 1)
     k, ncv, restarts = _sizes(dim, neigen, ncv, maxiter)
-    V = torch.zeros((ncv + 1, dim), dtype=v0.dtype, device=v0.device)
-    V[0] = v0 / torch.linalg.vector_norm(v0)
+    V = torch.zeros((ncv + 1, v0.shape[0]), dtype=v0.dtype, device=v0.device)
+    V[0] = v0 / _norm(v0, mesh)
     T = torch.zeros((ncv + 1, ncv + 1), dtype=v0.dtype, device=v0.device)
     niter = 0
     j0 = 0
     for _ in range(restarts):
-        betas = _expand(matvec, V, T, j0, ncv)
+        betas = _expand(matvec, V, T, j0, ncv, mesh)
         niter += ncv - j0
         evals_all, Y, m_eff, k_eff, beta_m, conv = _rayleigh_ritz(
             T.cpu().numpy(), betas.cpu().numpy(), j0, ncv, k, tol)
@@ -308,11 +353,12 @@ def eigs_lanczos(matvec, v0, neigen: int, ncv: int, maxiter: int = 512,
 
 
 def eigs_lanczos_op(spec, blocks, arrays, v0, neigen: int, ncv: int,
-                    maxiter: int = 512, tol: float = 1e-12):
+                    maxiter: int = 512, tol: float = 1e-12, mesh=None):
     """eigs_lanczos with the operator in spec/arrays form (v0 flat
-    [dim])."""
-    return eigs_lanczos(_op_matvec(spec, blocks, arrays), v0, neigen, ncv,
-                        maxiter, tol)
+    [dim]; this rank's rows of the padded blocks under a `mesh`, with
+    parallel.hxv's local operator)."""
+    return eigs_lanczos(_op_matvec(spec, blocks, arrays, mesh), v0, neigen,
+                        ncv, maxiter, tol, mesh)
 
 
 def eigs_lanczos_op_stacked(spec, blocks, arrays_stacked, V0, neigen: int,
@@ -328,12 +374,27 @@ def eigs_lanczos_op_stacked(spec, blocks, arrays_stacked, V0, neigen: int,
     included, and discards theirs; here a frozen member is not expanded,
     which changes no result.
 
+    With `mesh` (parallel.make_mesh) of more than one sites rank, the
+    members split over the sites group, S padded to the axis multiple by
+    repeating the last member (as the reference pads), each rank running
+    its members' restarts; the results are all-gathered in member order
+    (every rank returns all of them) and the padding is discarded.
+
     Returns (evals [S, k] numpy, padded with inf where a member has
     k_eff < k; evecs list of [k_eff, dim]; matvec count per member)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "eigs_lanczos_op_stacked(mesh=...): the site-sharded restart "
-            "waits for parallel/ (ROADMAP.md §1 item 4)")
+    if sites_sharded(mesh):
+        S_orig = V0.shape[0]
+        npad = (-S_orig) % mesh.shape["sites"]
+        if npad:
+            arrays_stacked = tuple(
+                torch.cat([a, a[-1:].expand((npad,) + a.shape[1:])])
+                for a in arrays_stacked)
+            V0 = torch.cat([V0, V0[-1:].expand(npad, -1)])
+        sl = site_chunk(mesh, V0.shape[0])
+        evals, evecs, niter = eigs_lanczos_op_stacked(
+            spec, blocks, tuple(a[sl] for a in arrays_stacked), V0[sl],
+            neigen, ncv, maxiter, tol)
+        return _gather_members(mesh, evals, evecs, niter, V0, S_orig)
     S, dim = V0.shape
     k, ncv, restarts = _sizes(dim, neigen, ncv, maxiter)
     V = torch.zeros((S, ncv + 1, dim), dtype=V0.dtype, device=V0.device)
@@ -371,3 +432,23 @@ def eigs_lanczos_op_stacked(spec, blocks, arrays_stacked, V0, neigen: int,
     evals = np.stack([np.pad(e, (0, k - len(e)), constant_values=np.inf)
                       for e in out_evals])
     return evals, out_evecs, niter
+
+
+def _gather_members(mesh, evals, evecs, niter, V0, S_orig):
+    """All-gather a sites rank's stacked-restart results (evals [S_loc, k]
+    inf-padded, evecs list of [k_eff, dim]) in member order; the padded
+    members past S_orig are dropped."""
+    k = evals.shape[1]
+    dev = V0.device
+    ev = mesh.all_gather("sites", torch.as_tensor(evals, device=dev))
+    vecs = torch.zeros((len(evecs), k, V0.shape[1]), dtype=evecs[0].dtype,
+                       device=dev)
+    for s, e in enumerate(evecs):
+        vecs[s, :e.shape[0]] = e
+    vecs = mesh.all_gather("sites", vecs)
+    niter = int(mesh.all_reduce("sites", torch.tensor(niter, device=dev),
+                                op=torch.distributed.ReduceOp.MAX))
+    ev = ev.cpu().numpy()[:S_orig]
+    kk = np.isfinite(ev).sum(axis=1)
+    return ev, [vecs[s, :kk[s]] for s in range(S_orig)], niter
+

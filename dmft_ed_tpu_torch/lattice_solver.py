@@ -4,11 +4,13 @@ dmft_ed_tpu/lattice_solver.py.
 Replaces ED_MAIN.f90's lattice variants (:344-681): a stack of impurity
 solvers, one per inequivalent site, each with its own ``_ineq####`` file
 suffix. The reference distributes sites round-robin over MPI ranks
-(ED_MAIN.f90:576-678); here the sites are one batch on one device: the
-sector sweep runs site-batched (diag.diagonalize_sites), the Green's
-function and susceptibility chains of every site share one
-gf_common.ResolventBatch, and the bath fit is one joint L-BFGS-B over all
-sites (fit.chi2_fitgf_sites).
+(ED_MAIN.f90:576-678); here the sites are one batch: the sector sweep runs
+site-batched (diag.diagonalize_sites), the Green's function and
+susceptibility chains of every site share one gf_common.ResolventBatch,
+and the bath fit is one joint L-BFGS-B over all sites
+(fit.chi2_fitgf_sites). With a ``(sites, rows)`` mesh the eigh batches,
+the stacked restarts and the fit's objective split over the sites group
+and large sectors row-shard over the rows group.
 """
 
 from __future__ import annotations
@@ -32,18 +34,17 @@ class LatticeEDSolver:
                  cfgs=None, mesh=None, device="cuda"):
         """cfgs: optional per-site configs (same sector structure as cfg,
         different interaction/level values — ed_ahm_stripe.f90's periodic
-        U modulation). `mesh` (the site-sharded form) is not ported and
-        raises."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "LatticeEDSolver(mesh=...): the site-sharded solver waits "
-                "for parallel/ (ROADMAP.md §1 item 4)")
+        U modulation). mesh: optional (sites, rows) parallel.Mesh — the
+        site-batched sweep and the joint fit split over 'sites', sectors
+        above cfg.shard_dim_threshold row-shard over 'rows'; every rank
+        gets every site's result."""
         self.cfg = cfg
+        self.mesh = mesh
         self.nineq = hloc_ineq.shape[0]
         self.cfgs = list(cfgs) if cfgs is not None else [cfg] * self.nineq
         self.solvers: List[EDSolver] = [
             EDSolver(self.cfgs[i], hloc_ineq[i], suffix=f"_ineq{i + 1:04d}",
-                     log=log, device=device)
+                     log=log, device=device, mesh=mesh)
             for i in range(self.nineq)]
         self.device = self.solvers[0].device
         self.results: Optional[List[SolveResult]] = None
@@ -83,7 +84,7 @@ class LatticeEDSolver:
                 cfg, ubaths, hlocs, [s.diag_state for s in self.solvers],
                 log=self.solvers[0].log, cfgs=self.cfgs,
                 suffixes=[s.suffix for s in self.solvers],
-                timers=self.timers, device=self.device)
+                timers=self.timers, device=self.device, mesh=self.mesh)
         for i, s in enumerate(self.solvers):
             s.diag_state = states[i]
         with self.timers("gf_resolvents"):
@@ -105,7 +106,8 @@ class LatticeEDSolver:
             finite_t = self.cfg.finite_t or \
                 s.diag_state.lanc_nstates_total > 1
             finite_t = finite_t and len(slists[i]) > 1
-            cache = HamCache(self.cfgs[i], ubaths[i], s.hloc, self.device)
+            cache = HamCache(self.cfgs[i], ubaths[i], s.hloc, self.device,
+                             self.mesh)
             batch.add_site(i, cache, slists[i].emin, zetas[i], finite_t)
 
     def _batched_gf(self, ubaths, slists, zetas):
@@ -230,4 +232,4 @@ class LatticeEDSolver:
                 masks=[s.mask for s in self.solvers], cfgs=self.cfgs,
                 suffixes=[s.suffix for s in self.solvers],
                 log=self.solvers[0].log if self.cfg.ed_verbose > 0 else None,
-                precondition=first, device=self.device)
+                precondition=first, device=self.device, mesh=self.mesh)

@@ -1,5 +1,6 @@
 """Solver orchestration: init + the fixed solve pipeline — PyTorch port of
-dmft_ed_tpu/solver.py (ed_mode "normal", "superc" and "nonsu2"; no mesh).
+dmft_ed_tpu/solver.py (ed_mode "normal", "superc" and "nonsu2"; with a
+``mesh``, the row-sharded solve of large sectors on every rank).
 
 Replaces ED_MAIN.f90: ``ed_init_solver`` (bath allocation/init/pack,
 :61-152) and ``ed_solve`` (set bath -> diagonalize -> Green's functions ->
@@ -67,10 +68,17 @@ class EDSolver:
     """
 
     def __init__(self, cfg: EDConfig, hloc: Optional[np.ndarray] = None,
-                 suffix: str = "", log=None, device="cuda"):
+                 suffix: str = "", log=None, device="cuda", mesh=None):
+        """mesh: optional parallel.Mesh (parallel.make_mesh) with a 'rows'
+        axis — sectors of dim >= cfg.shard_dim_threshold then diagonalize
+        and build their GF and chi chains row-sharded over its ranks (the
+        reference's MPI solver, ED_MAIN.f90:103-152, 284-327). Every rank
+        runs this solver on the same inputs and gets the whole result; the
+        mesh's device replaces `device`."""
         cfg.validate()
         self.cfg = cfg
-        self.device = resolve(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve(device)
         self.suffix = suffix
         self.log = log if log is not None else (
             _default_log if cfg.ed_verbose > 0 else lambda m: None)
@@ -105,7 +113,7 @@ class EDSolver:
         with self.timers("diagonalize"):
             slist, zeta, self.diag_state = diagonalize(
                 cfg, bath, self.hloc, self.diag_state, self.suffix, self.log,
-                timers=self.timers, device=self.device)
+                timers=self.timers, device=self.device, mesh=self.mesh)
         return self.solve_from_spectrum(bath, slist, zeta)
 
     def solve_from_spectrum(self, bath, slist, zeta, gf=None,
@@ -130,7 +138,7 @@ class EDSolver:
                 res.gmats, res.greal, res.fmats, res.freal = \
                     gf if gf is not None else build_gf_superc(
                         cfg, slist, zeta, bath, self.hloc, finite_t,
-                        self.log, device=self.device)
+                        self.log, device=self.device, mesh=self.mesh)
             with timers("sigma_dyson"):
                 (res.smats, res.sreal, res.smats_an, res.sreal_an,
                  res.g0mats, res.g0real, res.f0mats, res.f0real) = \
@@ -147,7 +155,7 @@ class EDSolver:
             with timers("gf_resolvents"):
                 res.gmats, res.greal = gf if gf is not None else build_gf(
                     cfg, slist, zeta, bath, self.hloc, finite_t, self.log,
-                    device=self.device)
+                    device=self.device, mesh=self.mesh)
             with timers("sigma_dyson"):
                 res.smats, res.sreal, res.g0mats, res.g0real = build_sigma(
                     cfg, bath, self.hloc, res.gmats, res.greal,
@@ -226,7 +234,7 @@ class EDSolver:
             out = pre.get(kind)
             if out is None:
                 with self.timers("chi_resolvents"):
-                    out = build(*args, device=self.device)
+                    out = build(*args, device=self.device, mesh=self.mesh)
             setattr(res, field_, out)
             edio.write_chi(cfg, name, *out, self.suffix)
 

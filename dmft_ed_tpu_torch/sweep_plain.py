@@ -30,8 +30,8 @@ import torch
 
 from .config import EDConfig
 from .hamiltonian import (SectorHamiltonian, _dense_apply, _ozaki_params,
-                          _vdtype)
-from .lanczos import _pdot_pair, _BREAKDOWN
+                          _rdtype, _vdtype)
+from .lanczos import _pdot_pair, _real_dtype, _BREAKDOWN
 
 
 def sweep_supported(cfg: EDConfig, hams: List[SectorHamiltonian]) -> bool:
@@ -55,8 +55,8 @@ def make_sweep_op(cfg: EDConfig, hams: List[SectorHamiltonian], device):
     per-sector dense diagonals where a sector has no factors)."""
     flags = [_vdtype(h, cfg) for h in hams]
     is_cplx = any(f[0] for f in flags)
-    vdtype = torch.complex128 if is_cplx else torch.float64
-    rdtype = torch.float64
+    vdtype = next((f[1] for f in flags if f[0]), flags[0][1])
+    rdtype = _rdtype(cfg)
     ozaki_n, ozaki_b = _ozaki_params(cfg, is_cplx)
 
     arrays = []
@@ -201,11 +201,12 @@ def sweep_tridiag(spec, arrays, niter: int, V0):
     Ds = prepare(arrays)
     S = len(V0)
     dev = V0[0].device
-    zero = torch.zeros((), dtype=torch.float64, device=dev)
-    one = torch.ones((), dtype=torch.float64, device=dev)
+    rdt = _real_dtype(V0[0].dtype)
+    zero = torch.zeros((), dtype=rdt, device=dev)
+    one = torch.ones((), dtype=rdt, device=dev)
     Vp = [torch.zeros_like(v) for v in V0]
     V = list(V0)
-    bp = torch.zeros(S, dtype=torch.float64, device=dev)
+    bp = torch.zeros(S, dtype=rdt, device=dev)
     alive = torch.ones(S, dtype=torch.bool, device=dev)
     out_a, out_b, alives = [], [], []
     for _ in range(niter):
@@ -229,8 +230,8 @@ def sweep_tridiag(spec, arrays, niter: int, V0):
     alphas = torch.stack(out_a)
     betas = torch.stack(out_b)
     nsteps = torch.stack(alives).to(torch.int64).sum(0)
-    betas_out = torch.cat([torch.ones((1, S), dtype=torch.float64,
-                                      device=dev), betas[:-1]])
+    betas_out = torch.cat([torch.ones((1, S), dtype=rdt, device=dev),
+                           betas[:-1]])
     return alphas, betas_out, nsteps
 
 
@@ -244,14 +245,14 @@ def sweep_rebuild(spec, arrays, niter: int, V0, alphas, betas, Y0):
     Ds = prepare(arrays)
     S = len(V0)
     dev = V0[0].device
+    rdt = _real_dtype(V0[0].dtype)
 
     def host(x):
-        return torch.as_tensor(np.asarray(x), dtype=torch.float64,
-                               device=dev)
+        return torch.as_tensor(np.asarray(x), device=dev).to(rdt)
 
     alphas, betas, Y0 = host(alphas), host(betas), host(Y0)
-    one = torch.ones((), dtype=torch.float64, device=dev)
-    beta_next = torch.cat([betas[1:], torch.zeros((1, S), dtype=torch.float64,
+    one = torch.ones((), dtype=rdt, device=dev)
+    beta_next = torch.cat([betas[1:], torch.zeros((1, S), dtype=rdt,
                                                   device=dev)])
     Vp = [torch.zeros_like(v) for v in V0]
     V = list(V0)

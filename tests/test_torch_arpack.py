@@ -196,7 +196,9 @@ def test_stacked_padded_restart_vs_per_sector():
 
 
 def test_stacked_restart_refuses_a_mesh():
-    with pytest.raises(NotImplementedError):
+    """The stacked restart takes a parallel.Mesh (its sites-sharded form is
+    held in tests/test_torch_parallel.py) and refuses anything else."""
+    with pytest.raises(TypeError, match="parallel.Mesh"):
         tlanczos.eigs_lanczos_op_stacked((), (), (), torch.zeros(1, 4), 1, 3,
                                          mesh=object())
 

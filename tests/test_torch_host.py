@@ -225,6 +225,7 @@ def test_import_leaves_out_jax():
             "import dmft_ed_tpu_torch.models.hm_bethe\n"
             "import dmft_ed_tpu_torch.convert, dmft_ed_tpu_torch.fit\n"
             "import dmft_ed_tpu_torch.chi\n"
+            "import dmft_ed_tpu_torch.parallel.spawn\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'dmft_ed_tpu' or "
             "m.startswith('dmft_ed_tpu.'))\n"
@@ -250,6 +251,8 @@ def _imports(path):
 def test_ast_no_jax_imports():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 20
+    assert {"mesh.py", "hxv.py", "spawn.py"} <= {
+        f.name for f in files if f.parent.name == "parallel"}
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
