@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """The JAX package's CPU values that ``chip_smoke.py`` holds phases 6, 8,
-9, 10, 11, 12, 13, 14, 15 and 16 to.
+9, 10, 11, 12, 13, 14, 15, 16 and 17 to.
 
 * ``--case bethe``: the canonical Hubbard loop of phase 6
   (``dmft_ed_tpu.models.hm_bethe.run`` with the package defaults: Norb=1,
@@ -63,6 +63,15 @@
   bath, restricted by ``ed_sectors`` to the half-filled (6,6) sector of
   853,776 states, in ``dtype="float32"`` and in float64: the ground-state
   energies and the seconds.
+* ``--case bench13``: the root ``bench.py``'s problem at ``--nbath``
+  (default 13: the half-filled (7,7) sector of Ns=14, 11,778,624 states
+  in one 3432x3432 block; phase 17): the 30 alphas and betas of
+  ``bench.lanczos_loop`` from ``bench.run``'s start vector, native
+  products; and the sector's ground-state energy by the JAX package's
+  thick restart (``lanczos.eigs_lanczos_op``, one eigenpair, the basis,
+  step limit and tolerance of ``diag``'s rule for the bench's config) from
+  the same start vector, with its matvecs and the seconds (a few minutes
+  and a few GiB at Nbath=13).
 
 The JAX package's nonsu2 G holds <<c_{b,s'}; c†_{a,s}>> at [s, s', a, b],
 the transpose of G0's convention (ROADMAP.md §3), which the port mends.
@@ -341,6 +350,35 @@ def run_f32() -> dict:
     return out
 
 
+def run_bench13(nbath: int) -> dict:
+    import numpy as np
+    import jax
+    import jax.numpy as jnp
+    import bench
+    from dmft_ed_tpu.hamiltonian import make_matvec_op
+    from dmft_ed_tpu.lanczos import eigs_lanczos_op
+    cfg, sec, ham, matvec, template = bench.build_problem(nbath, "float64")
+    blk = sec.blocks[0]
+    v0 = np.random.default_rng(1).normal(size=(blk.ddw, blk.dup))
+    v0 = jnp.asarray(v0 / np.linalg.norm(v0))
+    t0 = time.time()
+    loop = jax.jit(bench.lanczos_loop, static_argnums=(0, 2))
+    _, al, be = loop(matvec, v0, 30)
+    out = dict(case="bench13", nbath=nbath, dim=int(sec.dim),
+               nnz=int(ham.nnz_estimate()), alphas=np.asarray(al).tolist(),
+               betas=np.asarray(be).tolist(), loop_seconds=time.time() - t0)
+    spec, arrays, blocks = make_matvec_op(ham, cfg)
+    ncv = min(sec.dim, cfg.lanc_ncv_factor * cfg.lanc_nstates_sector
+              + cfg.lanc_ncv_add)
+    t0 = time.time()
+    evals, _, niter = eigs_lanczos_op(
+        spec, blocks, arrays, v0.reshape(-1), 1, ncv,
+        maxiter=min(sec.dim, cfg.lanc_niter), tol=cfg.lanc_tolerance)
+    out.update(egs=float(evals[0]), ncv=int(ncv), matvecs=int(niter),
+               gs_seconds=time.time() - t0)
+    return out
+
+
 def run_lattice_drivers() -> dict:
     import importlib
     import dmft_ed_tpu.models as models
@@ -406,9 +444,11 @@ def main() -> int:
     ap.add_argument("--case", choices=("bethe", "ahm", "nbath9", "soc", "bhz",
                                        "jz2", "flake", "soc_ineq",
                                        "drivers", "lattice_drivers",
-                                       "stack", "f32"),
+                                       "stack", "f32", "bench13"),
                     required=True)
     ap.add_argument("--method", default="arpack")
+    ap.add_argument("--nbath", type=int, default=13,
+                    help="bench13's Nbath (13: the (7,7) sector of Ns=14)")
     ap.add_argument("--nloop", type=int, default=None,
                     help="iterations (bethe 5, soc 3, bhz 3, flake 3, "
                     "soc_ineq 2)")
@@ -428,7 +468,8 @@ def main() -> int:
                    args.nloop or SOC_INEQ_NLOOP),
                "drivers": run_drivers,
                "lattice_drivers": run_lattice_drivers,
-               "stack": run_stack, "f32": run_f32}[args.case]()
+               "stack": run_stack, "f32": run_f32,
+               "bench13": lambda: run_bench13(args.nbath)}[args.case]()
         os.chdir(REPO)
     print(json.dumps(out))
     return 0

@@ -140,24 +140,44 @@ when any is missing or any phase fails. Phases:
     (c) phase 7's native solve in ``dtype="float32"``: egs within 1e-5
     relative of the float64 egs, seconds and peak memory beside phase
     7's;
-5. printed last, after phases 6 to 16: a ``{"kernels": [...]}`` line, the
+17. the port's benchmark entry points (``dmft_ed_tpu_torch.benches``) at
+    the ed_nano scale, ``bench.py``'s half-filled (7,7) sector of Ns=14
+    (Nbath=13: 11,778,624 states in one 3432x3432 block): (a)
+    ``benches.bench.run``, 30 Lanczos steps, under native, ozaki5x7 and
+    float32, the native alphas and betas held to the JAX package's CPU
+    values (``chip_reference.py --case bench13``), ozaki5x7 and float32
+    to native, with the seconds per step, the Lanczos iterations and
+    effective nnz per second, the kernel's launches (a sample of its
+    calls held bitwise) and the peak memory; (c) the sector's ground
+    state by the thick restart (``benches.bench.ground_state``), native
+    and ozaki5x7, held to the JAX package's egs and to each other; (d)
+    ``benches.bench_scaling`` on one rank and on two ranks sharing the
+    card (gloo), native: the sharded alphas and betas against one rank's,
+    ms per step, per sharded matvec and of its 94 MB all-gather alone (not
+    multi-GPU times). ``bench_e2e``'s two workloads are phases 3 and 6;
+5. printed last, after phases 6 to 17: a ``{"kernels": [...]}`` line, the
    card line, and as the last line ``{"ok": true, "device": {...}}``.
 
 Phases 10-12 print their seconds, the solver's stage timers, the matvecs
 of their largest sector, the torch calls of one matvec there, and the
 peak device memory.
 
-Phase 2 also holds the kernel at phase 16's row-sharded class, 462x924 ·
-924x924 on both sides, and at phase 9's classes: the 252 block class on
-both sides and the largest pairing classes, 252 -> 210 and 210 -> 252, on
-both sides; and at phase 14's mix-term classes, a 924x924 hop operator
+Phase 2 also holds the kernel at phase 17's classes, the Nbath=13 sector's
+3432x3432 operators against a 3432x3432 panel on both sides (K padded to
+3440, M not a multiple of the 128-row tile) and a rank's 1716-row slices
+of them (``bench_scaling``'s ozaki5x7 route on two ranks); at phase
+16's row-sharded class, 462x924 · 924x924 on both sides; at phase 9's
+classes: the 252 block class on both sides and the largest pairing
+classes, 252 -> 210 and 210 -> 252, on both sides; and at phase 14's
+mix-term classes, a 924x924 hop operator
 c+_a c_b against a 924x4096 panel and against the 924x924 panel of one
 Krylov vector of the (6,6) sector (the shape of every product phase
 14(c)'s Lanczos steps make), on both sides.
 
 Every path runs with the launch counts reset just before it and read just
-after it. ``--phases 10,12`` (for development; any of 10-16) runs phase
-1 and the listed phases only, and prints no result line.
+after it. ``--phases 10,12`` (for development; any of 10-17) runs phase
+1 and the listed phases only, and prints no result line (``--phases 17``
+also runs phase 2's phase-17 classes).
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -921,11 +941,62 @@ TOL_F32_EGS_REL = 1e-5
 F32_JAX_EGS = -13.32846450805664
 
 
-def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
+# Phase 17: the port's benchmark entry points (dmft_ed_tpu_torch.benches)
+# at the ed_nano scale: bench.py's problem at Nbath=13, the half-filled
+# (7,7) sector of Ns=14 (one 3432x3432 block, 11,778,624 states).
+# (a) benches.bench.run, 30 steps, under native, ozaki5x7 and float32, one
+# warm-up and P17_REPEATS timed runs each (the entry point's default is 3;
+# cut to keep the script near half its limit); the native alphas and
+# betas held to the JAX package's CPU values (python3 chip_reference.py
+# --case bench13), ozaki5x7 and float32 to native. Differences are
+# max_j |d alpha_j|, |d beta_j| over the largest |beta| (the recurrence's
+# scale; a relative difference per alpha would divide by alphas near 0).
+# Measured on an H100 (PERF.md): 7.8e-13, 8.4e-12 and 9.5e-8; the bounds
+# are ten times those, tightened from 1e-10, 1e-8 and 1e-4.
+P17_NBATH = 13
+P17_NITER = 30
+P17_REPEATS = 1
+TOL_P17_NATIVE = 1e-11
+TOL_P17_OZAKI = 1e-10
+TOL_P17_F32 = 1e-6
+# (c) the (7,7) ground state by the thick restart (benches.bench.
+# ground_state: lanczos.eigs_lanczos_op, one eigenpair, diag's basis rule),
+# native and ozaki5x7, held to the JAX package's egs of the same restart
+# from the same start vector and to each other (absolute). Measured on an
+# H100: native 1.1e-13, ozaki5x7 4.6e-11 (both within 1e-9, the bound
+# first set); held at ten times those, the pair at the ozaki5x7 bound.
+TOL_P17_EGS = 1e-12
+TOL_P17_EGS_OZAKI = 5e-10
+# (d) benches.bench_scaling on 1 and 2 ranks sharing the card (gloo,
+# native): the sharded alphas and betas against the single process
+# (measured 9.8e-17 on an H100; bound tightened from 1e-12)
+P17_SCALING = dict(niter=6, repeats=1)
+TOL_P17_SHARDED = 1e-15
+# python3 chip_reference.py --case bench13 (the JAX package on the CPU:
+# the loop 41.8 s, the restart 373.5 s on an 8-core host)
+BENCH13_JAX = dict(
+    alphas=[0.0007001217418281723, 0.0021269597548037615,
+        0.0025660413311520388, 0.007772536464962845, 0.01252978597015141,
+        0.024191654489132446, 0.04876477946340242, 0.07455707934222433,
+        0.10102875952005548, 0.12060180388590945, 0.13655346359053425,
+        0.14711870394260343, 0.16927782090601415, 0.19628723418008712,
+        0.18937893843837034, 0.13407908902375812, 0.061034487118882895,
+        0.017310464942785896, -0.0054013854273793115, -0.027013828282440495,
+        -0.06019631900760259, -0.10651545580697983, -0.15950650426231938,
+        -0.197380627294049, -0.16893931271358434, -0.08934907450756457,
+        0.014424473302984098, 0.07627995481206591, 0.05836952677137259,
+        0.003831818676243765],
+    betas=[2.650204113256758, 3.4285615497069006, 3.948012350457089,
+        4.289288668940658, 4.54587053801053, 4.741308462278421,
+        4.889583697844653, 5.001600724377374, 5.076911780089969,
+        5.126144270679571, 5.160087565331989, 5.176159653447503,
+        5.188405650720739, 5.20720111274799, 5.211243935983311,
+        5.198827787817805, 5.180728972512298, 5.176383096414613,
+        5.175820472131988, 5.1753823747290815, 5.174489984168913,
+        5.172845320842024, 5.173198468512063, 5.183269971225859,
+        5.189999484322845, 5.18216976639449, 5.1735457078793505,
+        5.162276103808036, 5.144753722457418, 5.121927978231394],
+    egs=-10.34660117602844, matvecs=199, dim=11778624, nnz=176679360)
 
 
 def build_kernels():
@@ -2952,6 +3023,135 @@ def hund_kernel_cases(device):
          5, 7, None, None))]
 
 
+def bench_kernel_cases(device):
+    """Phase-2 operands at phase 17's classes: bench.py's Nbath=13 sector
+    operators (3432x3432, K padded to 3440; M not a multiple of the
+    kernel's 128-row tile) against a 3432x3432 Krylov-like panel from a
+    seed, on both sides (H_dw @ V, V @ H_up^T); and the row slices a rank
+    of a rows=2 mesh multiplies (bench_scaling's ozaki5x7 route)."""
+    import torch
+    from dmft_ed_tpu_torch.benches.bench import build_hamiltonian
+    cfg, sec, ham = build_hamiltonian(P17_NBATH)
+    K = sec.blocks[0].ddw
+    g = torch.Generator().manual_seed(1700)
+    V = (torch.randn(K, K, dtype=torch.float64, generator=g) / K).to(device)
+
+    def dense(coo):
+        return torch.as_tensor(coo.to_dense(), dtype=torch.float64,
+                               device=device)
+    Hdw, HupT = dense(ham.hdw[0]), dense(ham.hup[0]).T.contiguous()
+    h = K // 2
+    return [(f"bench dw K={K}", Hdw, V, 5, 7, None, None),
+            (f"bench up K={K}", V, HupT, 5, 7, None, None),
+            (f"bench rows dw {h} of {K}", Hdw[:h].contiguous(), V, 5, 7,
+             None, None),
+            (f"bench rows up {h} of {K}", V[:h].contiguous(), HupT, 5, 7,
+             None, None)]
+
+
+def _p17_diff(res, ref):
+    """max_j |d alpha_j|, |d beta_j| of two runs over the largest |beta|
+    of `ref`."""
+    import numpy as np
+    d = np.abs(np.r_[res["alphas"], res["betas"]]
+               - np.r_[ref["alphas"], ref["betas"]])
+    return float(d.max() / np.abs(ref["betas"]).max())
+
+
+def entry_points(device):
+    """Phase 17 (a), (c), (d): the benches at Nbath=13. Returns the
+    launches per kernel of each path."""
+    import numpy as np
+    from dmft_ed_tpu_torch.benches import bench, bench_scaling
+    from dmft_ed_tpu_torch.kernels import KERNELS, reset_launches
+    t17 = time.time()
+    out, bad, runs = {}, [], {}
+    for name, (dtype, prec) in bench.PRECISIONS.items():
+        t0 = time.time()
+        reset_launches()
+        with held_kernel() as held:
+            r = bench.run(P17_NBATH, dtype, P17_NITER, P17_REPEATS, prec,
+                          device)
+        out[f"bench_nbath13_{name}"] = {n: fn.launches
+                                        for n, fn in KERNELS.items()}
+        runs[name] = r
+        print(f"phase 17(a) bench.run {name}: dim {r['dim']} nnz {r['nnz']}"
+              f" {r['s_per_step'] * 1e3:.3f} ms per step, "
+              f"{r['lanczos_iters_per_s']:.2f} Lanczos iterations/s, "
+              f"{r['nnz_per_s']:.4e} nnz/s (warm-up {r['warmup_s']:.3f} s "
+              f"for {P17_NITER} steps), launches "
+              f"{out[f'bench_nbath13_{name}']}, kernel calls held bitwise: "
+              f"{len(held)}, peak {r['peak_gib']:.3f} GiB, "
+              f"{time.time() - t0:.3f} s in all")
+        if not r["finite"]:
+            bad.append(f"(a) {name}: non-finite Krylov vector")
+    d_nat = _p17_diff(runs["native"], BENCH13_JAX)
+    d_oz = _p17_diff(runs["ozaki5x7"], runs["native"])
+    d_32 = _p17_diff(runs["float32"], runs["native"])
+    print(f"phase 17(a) alphas, betas: native vs the JAX package "
+          f"{d_nat:.3e} (bound {TOL_P17_NATIVE:g}); ozaki5x7 vs native "
+          f"{d_oz:.3e} ({TOL_P17_OZAKI:g}); float32 vs native {d_32:.3e} "
+          f"({TOL_P17_F32:g})")
+    if not d_nat <= TOL_P17_NATIVE:
+        bad.append("(a) native differs from the JAX package")
+    if not d_oz <= TOL_P17_OZAKI:
+        bad.append("(a) ozaki5x7 differs from native")
+    if not d_32 <= TOL_P17_F32:
+        bad.append("(a) float32 differs from native")
+    if out["bench_nbath13_ozaki5x7"]["digit_matmul"] <= 0:
+        bad.append("(a) the ozaki5x7 run launched no kernel")
+    if out["bench_nbath13_native"]["digit_matmul"] \
+            + out["bench_nbath13_float32"]["digit_matmul"]:
+        bad.append("(a) a native or float32 run launched the kernel")
+    gs = {}
+    for prec in ("native", "ozaki5x7"):
+        reset_launches()
+        gs[prec] = bench.ground_state(P17_NBATH, prec, device)
+        out[f"ground_state_nbath13_{prec}"] = {n: fn.launches
+                                               for n, fn in KERNELS.items()}
+        g = gs[prec]
+        tol = TOL_P17_EGS if prec == "native" else TOL_P17_EGS_OZAKI
+        print(f"phase 17(c) thick restart {prec}: egs={g['egs']!r} (the JAX"
+              f" package's {BENCH13_JAX['egs']!r}, |d|="
+              f"{abs(g['egs'] - BENCH13_JAX['egs']):.3e}, bound "
+              f"{tol:g}) {g['matvecs']} matvecs (ncv {g['ncv']}; "
+              f"the JAX package's {BENCH13_JAX['matvecs']}) in "
+              f"{g['seconds']:.3f} s, launches "
+              f"{out[f'ground_state_nbath13_{prec}']}, peak "
+              f"{g['peak_gib']:.3f} GiB")
+        if not (abs(g["egs"] - BENCH13_JAX["egs"]) <= tol and g["finite"]):
+            bad.append(f"(c) {prec} egs differs from the JAX package's")
+    d_gs = abs(gs["native"]["egs"] - gs["ozaki5x7"]["egs"])
+    print(f"phase 17(c) native vs ozaki5x7 egs |d|={d_gs:.3e} (bound "
+          f"{TOL_P17_EGS_OZAKI:g})")
+    if not d_gs <= TOL_P17_EGS_OZAKI:
+        bad.append("(c) native and ozaki5x7 egs disagree")
+    if out["ground_state_nbath13_ozaki5x7"]["digit_matmul"] <= 0:
+        bad.append("(c) the ozaki5x7 restart launched no kernel")
+    t0 = time.time()
+    sc = bench_scaling.scaling(device, P17_NBATH, "native",
+                               max_ranks=2, **P17_SCALING)
+    for rec in sc:
+        print(f"phase 17(d) bench_scaling native, {rec['ranks']} rank(s) "
+              f"({rec['backend']}, sharing one card: {rec['shared_card']};"
+              f" not a multi-GPU time): {rec['s_per_iter'] * 1e3:.3f} ms "
+              f"per step, local block {rec['local_block']}, one matvec "
+              f"{rec['matvec_ms']:.3f} ms, of it the {rec['gather_mb']:.1f}"
+              f" MB all-gather alone {rec['gather_ms']:.3f} ms; "
+              f"alphas, betas vs one rank {rec['max_rel_diff_vs_1rank']:.3e}"
+              f" (bound {TOL_P17_SHARDED:g}); peak {rec['peak_gib']:.3f} "
+              f"GiB per rank")
+    out["scaling_nbath13_native"] = sc[-1]["launches_all_ranks"]
+    if not (len(sc) == 2 and sc[1]["max_rel_diff_vs_1rank"]
+            <= TOL_P17_SHARDED and np.isfinite(sc[1]["s_per_iter"])):
+        bad.append("(d) the two ranks' alphas and betas differ from one "
+                   "rank's")
+    print(f"phase 17: {time.time() - t17:.3f} s")
+    if bad:
+        raise AssertionError("phase 17: " + "; ".join(bad))
+    return out
+
+
 def driver_phases(device, work):
     """Phase 14 (a)-(c), each in a directory of its own. Returns the
     launches per kernel of each path."""
@@ -3006,7 +3206,7 @@ def nonsu2_phases(device, want, work):
 
 
 def dev_phases(device, want, work):
-    """--phases: the listed phases of 10-15 only; no result line."""
+    """--phases: the listed phases of 10-17 only; no result line."""
     nonsu2_phases(device, want, work)
     if want(13):
         flake_phases(device, work)
@@ -3016,6 +3216,9 @@ def dev_phases(device, want, work):
         lattice_phases(device, work)
     if want(16):
         mesh_phases(device, work)
+    if want(17):
+        digit_matmul_cases(device, bench_kernel_cases(device))
+        entry_points(device)
     print("chip_smoke: development run of some phases only; no result")
     return 0
 
@@ -3040,7 +3243,8 @@ def main() -> int:
     t_start = time.time()
 
     # ---- phase 1: the card and the build
-    card = card_line()
+    from dmft_ed_tpu_torch.benches import card_line
+    card = card_line(device)
     print(f"card: {card}")
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda}")
@@ -3060,7 +3264,8 @@ def main() -> int:
             # ---- phase 2: kernel vs plain at the main path's shapes
             cases = digit_matmul_cases(
                 device, kernel_cases(device, MAIN_CFG)
-                + superc_kernel_cases(device) + hund_kernel_cases(device))
+                + superc_kernel_cases(device) + hund_kernel_cases(device)
+                + bench_kernel_cases(device))
             # ---- phase 3: the first slice's path
             r, obs, launches = main_path(device, MAIN_CFG, MAIN_RUN,
                                          hm_bethe)
@@ -3104,6 +3309,8 @@ def main() -> int:
             # ---- phase 16: the meshes (two ranks on the card), float32
             launches_16 = mesh_phases(device, work, r.bath, res7, secs7,
                                       sectors7)
+            # ---- phase 17: the benchmark entry points at Nbath=13
+            launches_17 = entry_points(device)
         finally:
             os.chdir(REPO)
 
@@ -3136,11 +3343,12 @@ def main() -> int:
             **{k: v["digit_matmul"] for k, v in launches_13.items()},
             **{k: v["digit_matmul"] for k, v in launches_14.items()},
             **{k: v["digit_matmul"] for k, v in launches_15.items()},
-            **{k: v["digit_matmul"] for k, v in launches_16.items()}},
+            **{k: v["digit_matmul"] for k, v in launches_16.items()},
+            **{k: v["digit_matmul"] for k, v in launches_17.items()}},
         "ms_per_class": {c["label"]: c["ms"] for c in cases
                          if "embedded" in c["label"]
                          or c["label"].startswith(("fused", "superc",
-                                                   "mix", "rows"))},
+                                                   "mix", "rows", "bench"))},
     }]
     print(f"total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -5,6 +5,7 @@ from one program. (A user runs the ranks under ``torchrun`` instead.)
     results = run_ranks("path/to/file.py:fn", world=2, kwargs={...},
                         workdir=tmp, timeout=120)
 
+(or a module's function, ``"package.module:fn"``);
 starts `world` processes of ``python -m dmft_ed_tpu_torch.parallel.spawn``;
 rank r joins a process group (``init_process_group`` with the given
 backend, a ``FileStore`` under `workdir` and a timeout), changes into
@@ -31,6 +32,8 @@ _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
 
 def _load(target: str):
     path, fn = target.rsplit(":", 1)
+    if not path.endswith(".py"):
+        return getattr(importlib.import_module(path), fn)
     spec = importlib.util.spec_from_file_location(
         "_rank_target_" + os.path.splitext(os.path.basename(path))[0], path)
     mod = importlib.util.module_from_spec(spec)
@@ -41,13 +44,15 @@ def _load(target: str):
 def run_ranks(target: str, world: int, kwargs: dict, workdir: str,
               timeout: float, backend: str = "gloo",
               threads: int = 1) -> list:
-    """Run ``target`` ("file.py:function") on `world` ranks; returns the
-    ranks' return values in rank order."""
+    """Run ``target`` ("file.py:function" or "package.module:function")
+    on `world` ranks; returns the ranks' return values in rank order."""
     os.makedirs(workdir, exist_ok=True)
     job = os.path.join(workdir, "job.pkl")
     path, fn = target.rsplit(":", 1)
+    if path.endswith(".py"):
+        path = os.path.abspath(path)
     with open(job, "wb") as fh:
-        pickle.dump(dict(target=f"{os.path.abspath(path)}:{fn}",
+        pickle.dump(dict(target=f"{path}:{fn}",
                          world=world, kwargs=kwargs, backend=backend,
                          store=os.path.join(workdir, "store"),
                          timeout=timeout, threads=threads), fh)

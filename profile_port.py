@@ -44,7 +44,8 @@ def main() -> int:
         return 2
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from chip_smoke import MAIN_CFG, build_kernels, card_line
+    from chip_smoke import MAIN_CFG, build_kernels
+    from dmft_ed_tpu_torch.benches import card_line
     from dmft_ed_tpu_torch.bath import init_bath
     from dmft_ed_tpu_torch.config import EDConfig
     from dmft_ed_tpu_torch.hamiltonian import build_sector_hamiltonian
@@ -52,7 +53,7 @@ def main() -> int:
     from dmft_ed_tpu_torch.sectors import sector_table
     from dmft_ed_tpu_torch.sweep_plain import make_sweep_op, sweep_tridiag
 
-    card = card_line()
+    card = card_line("cuda")
     print(f"card: {card}")
     build_kernels()
     dev = torch.device("cuda", 0)

@@ -226,6 +226,10 @@ def test_import_leaves_out_jax():
             "import dmft_ed_tpu_torch.convert, dmft_ed_tpu_torch.fit\n"
             "import dmft_ed_tpu_torch.chi\n"
             "import dmft_ed_tpu_torch.parallel.spawn\n"
+            "import dmft_ed_tpu_torch.benches.bench, "
+            "dmft_ed_tpu_torch.benches.bench_e2e\n"
+            "import dmft_ed_tpu_torch.benches.bench_scaling, "
+            "dmft_ed_tpu_torch.benches.bench_trace\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'dmft_ed_tpu' or "
             "m.startswith('dmft_ed_tpu.'))\n"
@@ -253,6 +257,9 @@ def test_ast_no_jax_imports():
     assert len(files) > 20
     assert {"mesh.py", "hxv.py", "spawn.py"} <= {
         f.name for f in files if f.parent.name == "parallel"}
+    assert {"bench.py", "bench_e2e.py", "bench_scaling.py",
+            "bench_trace.py"} <= {
+        f.name for f in files if f.parent.name == "benches"}
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
