@@ -63,6 +63,43 @@
   bath, restricted by ``ed_sectors`` to the half-filled (6,6) sector of
   853,776 states, in ``dtype="float32"`` and in float64: the ground-state
   energies and the seconds.
+* ``--case backend_parity``: tests/test_torch_backend_parity.py's loop
+  (``hm_bethe.run``, Nbath=6, beta=100, plain Lanczos, to
+  dmft_error=1e-7 in at most 80 iterations, ``native``) on the JAX
+  package's default CPU route: the fixed point's docc, dens, egs, Z and
+  error, which tests/test_torch_slow_bethe.py holds the card's native
+  loop to (a few minutes).
+
+The cases below tell a fault of the port from a property that the JAX
+package shares, for the slow physics tests (ROADMAP.md §3). They run
+either package (``--package jax|torch``, on the CPU with one torch and one
+BLAS thread; ``--device cuda`` runs the port on a card, where the JAX
+package is not needed):
+
+* ``--case loop --package P --seed S``: the backend-parity loop
+  (PARITY_CFG, native) on the batched route (``DMFT_ED_RAGGED=1``) with
+  ``cfg.seed = S``: the error of every iteration (the loop's
+  ``error.err``), the fixed point, the seconds (~2.5 min). ``--out DIR``
+  also writes ``DIR/<package>_s<S>.json``.
+* ``--case pool --out DIR``: pools the ``loop`` files of DIR per package
+  over iterations 40-80: the median error, the share above 5e-6, the
+  finals above 5e-6 and a Mann-Whitney test of the per-run medians.
+* ``--case split --seed S``: along the port's batched-route trajectory,
+  both packages solve the same bath and fit the same Weiss field from the
+  same bath every iteration: the largest differences of G, Σ, egs and
+  docc and of the fitted baths, and the chi^2 of both fits (~5 min).
+* ``--case nudge_multiband --package P --n N --step X [--route 0|1]
+  [--device cpu|cuda]``: tests/test_multiband_dos.py:102's loop with its
+  initial bath scaled by (1 + k X), k = 0..N-1 (k = 0 is the test's own
+  input): |dens0 - dens1| per run against the test's 1e-6. ``--route``
+  sets ``DMFT_ED_RAGGED``; ``--device cuda`` (port only) runs it on the
+  card's route.
+* ``--case nudge_blg ...``: tests/test_new_drivers.py:185's AB loop the
+  same way: max |dens - 1| against the test's 3e-4.
+* ``--case soc_mended [--raw]``: tests/test_soc.py:23's loop in the JAX
+  package with its nonsu2 G mended (``_mend_nonsu2_g``; ``--raw``:
+  unmended): the orbital densities and their spread against the test's
+  0.05.
 * ``--case bench13``: the root ``bench.py``'s problem at ``--nbath``
   (default 13: the half-filled (7,7) sector of Ns=14, 11,778,624 states
   in one 3432x3432 block; phase 17): the 30 alphas and betas of
@@ -88,6 +125,7 @@ object as its last line.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
@@ -113,6 +151,25 @@ SOC_INEQ_CFG = dict(norb=3, nspin=2, nbath=1, uloc=(1.0, 1.0, 1.0),
                     ed_mode="nonsu2", bath_type="replica", dmft_error=1e-12,
                     ed_verbose=0)
 SOC_INEQ_NLOOP = 2
+# tests/test_torch_backend_parity.py's CFG and RUN
+PARITY_CFG = dict(norb=1, nbath=6, nspin=1, uloc=(2.0,), beta=100.0,
+                  lmats=512, lreal=64, lfit=512, nloop=80, dmft_error=1e-7,
+                  ed_verbose=0, lanc_method="lanczos", lanc_niter=256,
+                  lanc_ngfiter=200, lanc_dim_threshold=32)
+PARITY_RUN = dict(le=300, wmixing=0.5)
+# tests/test_multiband_dos.py:102, tests/test_new_drivers.py:185 and
+# tests/test_soc.py:23's configs
+MULTIBAND_CFG = dict(norb=2, nbath=2, nspin=1, uloc=(1.5, 1.5),
+                     bath_type="hybrid", beta=50.0, lmats=120, lreal=30,
+                     lfit=120, nloop=15, dmft_error=1e-3, ed_verbose=0,
+                     lanc_dim_threshold=2048)
+BLG_CFG = dict(norb=1, nbath=3, nspin=1, uloc=(2.0,), beta=20.0, lmats=96,
+               lreal=32, nloop=4, dmft_error=1e-15, ed_verbose=0)
+SOC_PROBE_CFG = dict(norb=3, nspin=2, nbath=1, uloc=(1.0, 1.0, 1.0),
+                     ust=0.5, ed_mode="nonsu2", bath_type="replica",
+                     beta=50.0, lmats=100, lreal=30, lfit=100, nloop=5,
+                     dmft_error=1e-3, ed_verbose=0, lanc_dim_threshold=400,
+                     lanc_nstates_sector=2, cg_niter=200)
 NBATH9_CFG = dict(norb=1, nbath=9, nspin=1, ed_mode="superc", uloc=(-2.0,),
                   beta=100.0, lmats=1024, lreal=256, lanc_niter=256,
                   ed_verbose=0)
@@ -439,12 +496,251 @@ def run_jz2() -> dict:
                 seconds=time.time() - t0)
 
 
+def run_backend_parity() -> dict:
+    import numpy as np
+    from dmft_ed_tpu.config import EDConfig
+    from dmft_ed_tpu.models import hm_bethe
+    cfg = EDConfig(**PARITY_CFG, matmul_precision="native").validate()
+    t0 = time.time()
+    r = hm_bethe.run(cfg, log=lambda *a, **k: None, **PARITY_RUN)
+    z = 1.0 / (1.0 - r.smats[0, 0, 0, 0, 0].imag / (np.pi / cfg.beta))
+    return dict(case="backend_parity", iterations=int(r.iterations),
+                docc=float(r.docc[0]), dens=float(r.dens[0]),
+                egs=float(r.egs), z=float(z), error=float(r.error),
+                seconds=time.time() - t0)
+
+
+def _pkg(name):
+    """(config, models, solver, lattice_solver, kwargs) of a package."""
+    if name == "jax":
+        import jax
+        jax.config.update("jax_platforms", "cpu")
+        import dmft_ed_tpu.config as config
+        import dmft_ed_tpu.models as models
+        import dmft_ed_tpu.solver as solver
+        import dmft_ed_tpu.lattice_solver as lattice_solver
+        return config, models, solver, lattice_solver, {}
+    import torch
+    torch.set_num_threads(1)
+    import dmft_ed_tpu_torch.config as config
+    import dmft_ed_tpu_torch.models as models
+    import dmft_ed_tpu_torch.solver as solver
+    import dmft_ed_tpu_torch.lattice_solver as lattice_solver
+    return config, models, solver, lattice_solver, {"device": "cpu"}
+
+
+def threadpool_limits(limits=1):
+    """threadpoolctl's BLAS limit where the package is installed."""
+    try:
+        from threadpoolctl import threadpool_limits as limit
+    except ImportError:
+        return contextlib.nullcontext()
+    return limit(limits=limits)
+
+
+def _fresh_dir():
+    os.chdir(tempfile.mkdtemp())
+
+
+def run_loop(package: str, seed: int, out: str | None) -> dict:
+    import numpy as np
+    os.environ["DMFT_ED_RAGGED"] = "1"
+    config, _, _, _, kw = _pkg(package)
+    from importlib import import_module
+    hm_bethe = import_module(("dmft_ed_tpu" if package == "jax"
+                              else "dmft_ed_tpu_torch") + ".models.hm_bethe")
+    cfg = config.EDConfig(**PARITY_CFG, matmul_precision="native",
+                            seed=seed).validate()
+    _fresh_dir()
+    t0 = time.time()
+    r = hm_bethe.run(cfg, log=lambda *a, **k: None, **PARITY_RUN, **kw)
+    errors = [float(ln.split()[1]) for ln in open("error.err")]
+    z = 1.0 / (1.0 - r.smats[0, 0, 0, 0, 0].imag / (np.pi / cfg.beta))
+    res = dict(case="loop", package=package, seed=seed, errors=errors,
+               final=float(r.error), docc=float(r.docc[0]),
+               dens=float(r.dens[0]), egs=float(r.egs), z=float(z),
+               seconds=time.time() - t0)
+    if out:
+        os.makedirs(out, exist_ok=True)
+        with open(os.path.join(out, f"{package}_s{seed}.json"), "w") as fh:
+            json.dump(res, fh)
+    return res
+
+
+def run_pool(out: str) -> dict:
+    import glob
+    import numpy as np
+    from scipy.stats import mannwhitneyu
+    res = {}
+    medians = {}
+    for package in ("jax", "torch"):
+        runs = [json.load(open(f)) for f in sorted(
+            glob.glob(os.path.join(out, f"{package}_s*.json")))]
+        # error.err starts at iteration 2 (the first check has no error)
+        tails = [np.array(r["errors"][38:79]) for r in runs]
+        pooled = np.concatenate(tails)
+        medians[package] = [float(np.median(t)) for t in tails]
+        res[package] = dict(
+            runs=len(runs), median=float(np.median(pooled)),
+            share_above_5e6=float(np.mean(pooled > 5e-6)),
+            finals_above_5e6=sum(r["final"] > 5e-6 for r in runs),
+            finals=[r["final"] for r in runs], run_medians=medians[package])
+    res["mannwhitney_p"] = float(mannwhitneyu(medians["jax"],
+                                              medians["torch"]).pvalue)
+    return dict(case="pool", **res)
+
+
+def run_split(seed: int) -> dict:
+    import numpy as np
+    os.environ["DMFT_ED_RAGGED"] = "1"
+    jconfig, _, jsolver, _, _ = _pkg("jax")
+    tconfig, _, tsolver, _, _ = _pkg("torch")
+    from dmft_ed_tpu_torch.lattice import (bethe_bands, gloc_dos,
+                                           self_consistency)
+    jc = jconfig.EDConfig(**PARITY_CFG, matmul_precision="native",
+                            seed=seed).validate()
+    tc = tconfig.EDConfig(**PARITY_CFG, matmul_precision="native",
+                            seed=seed).validate()
+    hloc = np.zeros((1, 1, 1, 1))
+    base = tempfile.mkdtemp()
+    dirs = {k: os.path.join(base, k) for k in ("j", "t")}
+    for d in dirs.values():
+        os.makedirs(d)
+    js = jsolver.EDSolver(jc, hloc, log=lambda m: None)
+    ts = tsolver.EDSolver(tc, hloc, log=lambda m: None, device="cpu")
+    eb, db, h0 = bethe_bands(1, 1.0, PARITY_RUN["le"], np.zeros(1))
+
+    def chi2(k):
+        with open(os.path.join(dirs[k], "chi2fit_results.ed")) as fh:
+            return float(fh.read().split("\n")[-2].split()[0])
+
+    rows = []
+    with threadpool_limits(limits=1):
+        os.chdir(dirs["t"])
+        bath = ts.init_solver()
+        prev = bath.copy()
+        for it in range(1, PARITY_CFG["nloop"] + 1):
+            os.chdir(dirs["t"])
+            rt = ts.solve(bath)
+            os.chdir(dirs["j"])
+            rj = js.solve(bath)
+            gm = gloc_dos(tc, eb, db, h0, rt.smats, "mats")
+            weiss = self_consistency(tc, gm, rt.smats, hloc, diag_only=True)
+            os.chdir(dirs["t"])
+            ft = ts.chi2_fitgf(weiss, bath, ispin=0)
+            os.chdir(dirs["j"])
+            fj = js.chi2_fitgf(weiss, bath, ispin=0)
+            rows.append(dict(
+                dG=float(np.max(np.abs(rt.gmats - rj.gmats))),
+                dSigma=float(np.max(np.abs(rt.smats - rj.smats))),
+                degs=float(abs(rt.egs - rj.egs)),
+                ddocc=float(abs(rt.observables.docc[0]
+                                - rj.observables.docc[0])),
+                dfit=float(np.max(np.abs(ft - fj))),
+                chi2=(chi2("t"), chi2("j"))))
+            bath = ft if it == 1 else (PARITY_RUN["wmixing"] * ft
+                                       + (1 - PARITY_RUN["wmixing"]) * prev)
+            prev = bath.copy()
+    worst = {k: max(r[k] for r in rows)
+             for k in ("dG", "dSigma", "degs", "ddocc")}
+    return dict(case="split", seed=seed, iterations=len(rows), **worst,
+                dfit_first=rows[0]["dfit"],
+                dfit_later=max(r["dfit"] for r in rows[1:]),
+                chi2_first=rows[0]["chi2"])
+
+
+def _nudged(package, n, step, cls_name, run_one):
+    """run_one() n times, with the initial bath of the class's
+    initializer scaled by (1 + k step)."""
+    import numpy as np
+    _, _, solver, lattice_solver, _ = _pkg(package)
+    cls = getattr(solver, "EDSolver") if cls_name == "EDSolver" \
+        else getattr(lattice_solver, "LatticeEDSolver")
+    meth = "init_solver" if cls_name == "EDSolver" else "init_solvers"
+    orig = getattr(cls, meth)
+    out = []
+    try:
+        for k in range(n):
+            def init(self, *a, k=k, **kw):
+                return orig(self, *a, **kw) * (1.0 + k * step)
+            setattr(cls, meth, init)
+            _fresh_dir()
+            with threadpool_limits(limits=1):
+                out.append(float(run_one()))
+            print(json.dumps(dict(k=k, value=out[-1])), flush=True)
+    finally:
+        setattr(cls, meth, orig)
+    return np.array(out)
+
+
+def run_nudge_multiband(package, n, step, route, device) -> dict:
+    import numpy as np
+    if route is not None:
+        os.environ["DMFT_ED_RAGGED"] = route
+    config, models, _, _, kw = _pkg(package)
+    if device != "cpu":
+        kw = {"device": device}
+    from importlib import import_module
+    kspace = import_module(models.__name__ + ".kspace")
+    cfg = config.EDConfig(**MULTIBAND_CFG).validate()
+    hk = kspace.hk_multiband_square(nk=10, ts=0.5, norb=2)
+
+    def one():
+        r = kspace.run_kspace(cfg, hk, log=lambda m: None, **kw)
+        return abs(r.dens[0] - r.dens[1])
+    v = _nudged(package, n, step, "EDSolver", one)
+    return dict(case="nudge_multiband", package=package, route=route,
+                device=device, n=n, step=step,
+                above_1e6=int(np.sum(v > 1e-6)), median=float(np.median(v)),
+                values=v.tolist())
+
+
+def run_nudge_blg(package, n, step, route, device) -> dict:
+    import numpy as np
+    if route is not None:
+        os.environ["DMFT_ED_RAGGED"] = route
+    config, models, _, _, kw = _pkg(package)
+    if device != "cpu":
+        kw = {"device": device}
+    from importlib import import_module
+    blg = import_module(models.__name__ + ".blg")
+
+    def one():
+        r = blg.run(config.EDConfig(**BLG_CFG).validate(), stacking="AB",
+                    nk=8, t0=0.3, **kw)
+        return np.max(np.abs(r.dens[:, 0] - 1.0))
+    v = _nudged(package, n, step, "LatticeEDSolver", one)
+    return dict(case="nudge_blg", package=package, route=route,
+                device=device, n=n, step=step,
+                above_3e4=int(np.sum(v > 3e-4)), median=float(np.median(v)),
+                max=float(v.max()), values=v.tolist())
+
+
+def run_soc_mended(raw: bool) -> dict:
+    import numpy as np
+    config, _, _, _, _ = _pkg("jax")
+    from dmft_ed_tpu.models import soc
+    if not raw:
+        _mend_nonsu2_g()
+    cfg = config.EDConfig(**SOC_PROBE_CFG).validate()
+    _fresh_dir()
+    with threadpool_limits(limits=1):
+        r = soc.run(cfg, nk=4, t=0.5, soc=0.25, wmixing=0.5,
+                    log=lambda m: None)
+    return dict(case="soc_mended", raw=raw, dens=r.dens.tolist(),
+                ptp=float(np.ptp(r.dens)), error=float(r.error),
+                max_sigma_updn=float(np.max(np.abs(r.smats[0, 1]))))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--case", choices=("bethe", "ahm", "nbath9", "soc", "bhz",
                                        "jz2", "flake", "soc_ineq",
                                        "drivers", "lattice_drivers",
-                                       "stack", "f32", "bench13"),
+                                       "stack", "f32", "bench13",
+                                       "backend_parity", "loop", "pool",
+                                       "split", "nudge_multiband",
+                                       "nudge_blg", "soc_mended"),
                     required=True)
     ap.add_argument("--method", default="arpack")
     ap.add_argument("--nbath", type=int, default=13,
@@ -452,7 +748,32 @@ def main() -> int:
     ap.add_argument("--nloop", type=int, default=None,
                     help="iterations (bethe 5, soc 3, bhz 3, flake 3, "
                     "soc_ineq 2)")
+    ap.add_argument("--package", choices=("jax", "torch"), default="torch")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--out", default=None)
+    ap.add_argument("--n", type=int, default=16)
+    ap.add_argument("--step", type=float, default=1e-13)
+    ap.add_argument("--route", choices=("0", "1"), default=None)
+    ap.add_argument("--device", default="cpu")
+    ap.add_argument("--raw", action="store_true")
     args = ap.parse_args()
+    if args.out:
+        args.out = os.path.abspath(args.out)
+    probes = {"loop": lambda: run_loop(args.package, args.seed, args.out),
+              "pool": lambda: run_pool(args.out),
+              "split": lambda: run_split(args.seed),
+              "nudge_multiband": lambda: run_nudge_multiband(
+                  args.package, args.n, args.step, args.route, args.device),
+              "nudge_blg": lambda: run_nudge_blg(
+                  args.package, args.n, args.step, args.route, args.device),
+              "soc_mended": lambda: run_soc_mended(args.raw)}
+    if args.case in probes:
+        import scipy.linalg  # noqa: F401  (the OpenBLAS threadpoolctl limits)
+        with threadpool_limits(limits=1):
+            out = probes[args.case]()
+        os.chdir(REPO)
+        print(json.dumps(out))
+        return 0
     import jax
     jax.config.update("jax_platforms", "cpu")
     with tempfile.TemporaryDirectory() as work:
@@ -469,7 +790,8 @@ def main() -> int:
                "drivers": run_drivers,
                "lattice_drivers": run_lattice_drivers,
                "stack": run_stack, "f32": run_f32,
-               "bench13": lambda: run_bench13(args.nbath)}[args.case]()
+               "bench13": lambda: run_bench13(args.nbath),
+               "backend_parity": run_backend_parity}[args.case]()
         os.chdir(REPO)
     print(json.dumps(out))
     return 0

@@ -32,9 +32,10 @@ when any is missing or any phase fails. Phases:
 7. the thick restart at full width: one ``EDSolver.solve`` of the Nbath=11
    config with ``lanc_method="arpack"`` and ``chispin_flag`` on phase 3's
    final bath, with ``native`` and with ``ozaki5x7`` (over the native
-   solve's ground-state sector and its neighbours, ``ed_sectors``; its
-   p2 bucket runs the stacked restart over zero-embedded operators),
-   held to phase 4's plain-Lanczos egs and to each other;
+   solve's ground-state sector and its neighbours, ``ed_sectors``, in a
+   directory of its own; its p2 bucket runs the stacked restart over
+   zero-embedded operators), held to phase 4's plain-Lanczos egs and to
+   each other;
 8. the canonical attractive-Hubbard loop: ``models.ahm_bethe.run`` with the
    package defaults (``arpack``, ``native``) at Norb=1, Nbath=6, U=-2,
    beta=1000, Lmats=Lreal=5000, dmft_error=1e-5, to convergence, held to
@@ -134,7 +135,11 @@ when any is missing or any phase fails. Phases:
     bitwise, one sharded (6,6) matvec of each precision against the
     unsharded one (bitwise under ozaki5x7, 1e-12 relative native), the
     all-gathers per matvec, ms per sharded matvec beside its all-gather
-    alone and the unsharded matvec, and the peak memory per rank; (b) ``LatticeEDSolver(mesh=sites 2)`` on phase
+    alone and the unsharded matvec, and the peak memory per rank; the two
+    ranks run in one shared directory, where only rank 0 writes, and
+    each solve's files (one subdirectory per precision) must carry the
+    names and line counts of phase 7's single-process ozaki5x7 solve over
+    the same sectors; (b) ``LatticeEDSolver(mesh=sites 2)`` on phase
     13(a)'s flake (three classes on two site ranks), held to the
     single-process batched solve (egs 1e-9, G 1e-7, dens and docc 1e-8);
     (c) phase 7's native solve in ``dtype="float32"``: egs within 1e-5
@@ -915,6 +920,9 @@ STACK_JAX = {'egs': [-11.372637028585594,
 # ozaki5x7 bitwise to the unsharded one
 P16_RANKS = 2
 P16_TIMEOUT = 420.0
+# phase 7's ozaki5x7 solve runs in this directory of its own: phase 16's
+# ranks must leave the same file names and line counts
+P7_OZAKI_DIR = "arpack_ozaki5x7"
 TOL_P16_EGS = 1e-10
 TOL_P16_G = 1e-8
 TOL_P16_SIGMA = 1e-6
@@ -1391,7 +1399,11 @@ def arpack_solve(device, bath, egs_lanczos):
     kernel's launches; egs against the plain-Lanczos native egs of the same
     bath, and native against ozaki5x7. Returns the ozaki solve's launches
     per kernel, and the results and (seconds, peak GiB) of both solves
-    (phase 16 holds its sharded solves to them)."""
+    (phase 16 holds its sharded solves to them). The ozaki5x7 solve runs
+    in ``arpack_ozaki5x7/`` with the native solve's sectors_list.restart,
+    so that its files stand alone (phase 16 compares the ranks' files
+    with them)."""
+    import shutil
     import numpy as np
     import torch
     from dmft_ed_tpu_torch.config import EDConfig
@@ -1406,6 +1418,11 @@ def arpack_solve(device, bath, egs_lanczos):
         lines = []
         solver = EDSolver(cfg, hloc, device=device, log=lambda m: lines.append(
             m) if m.startswith("thick restart") else None)
+        here = os.getcwd()
+        if prec != "native":
+            os.mkdir(P7_OZAKI_DIR)
+            shutil.copy("sectors_list.restart", P7_OZAKI_DIR)
+            os.chdir(P7_OZAKI_DIR)
         reset_launches()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.time()
@@ -1413,6 +1430,7 @@ def arpack_solve(device, bath, egs_lanczos):
         if device.type == "cuda":
             torch.cuda.synchronize()
         dt = time.time() - t0
+        os.chdir(here)
         launches[prec] = {name: fn.launches for name, fn in KERNELS.items()}
         seconds[prec] = (dt, _peak_gib())
         stages = {k: round(v, 3) for k, v in sorted(solver.timers.acc.items())}
@@ -2581,7 +2599,10 @@ def p16_rank(bath, sectors):
     (6,6) matvec of each against the unsharded one (bitwise under
     ozaki5x7), timed beside its all-gather alone and the unsharded
     matvec, with its all-gathers counted; (b) the flake on a sites=2
-    mesh. Returns this rank's results, launches and peak memory."""
+    mesh. Both ranks run in one shared directory, each solve in a
+    subdirectory of its own (``native/``, ``ozaki5x7/``, ``flake/``), and
+    only rank 0 writes files. Returns this rank's results, launches and
+    peak memory."""
     import numpy as np
     import torch
     from dmft_ed_tpu_torch.bath import unpack_bath
@@ -2592,6 +2613,7 @@ def p16_rank(bath, sectors):
     from dmft_ed_tpu_torch.lattice_solver import LatticeEDSolver
     from dmft_ed_tpu_torch.parallel import make_mesh, row_slice
     from dmft_ed_tpu_torch.parallel.hxv import row_gather, sharded_sector_op
+    from dmft_ed_tpu_torch.parallel.mesh import writes_files
     from dmft_ed_tpu_torch.sectors import sector_table
     from dmft_ed_tpu_torch.solver import EDSolver
     torch.cuda.set_device(0)
@@ -2607,9 +2629,13 @@ def p16_rank(bath, sectors):
             return _fn(*a, **k)
         setattr(rows, name, counted)
     out = {"coord": rows.coord}
-    with open("sectors_list.restart", "w") as fh:
-        fh.write(sectors)
     for prec in ("native", "ozaki5x7"):
+        # rank 0 writes the sectors file; the solve reads it through rank 0
+        os.makedirs(prec, exist_ok=True)
+        os.chdir(prec)
+        if writes_files(rows):
+            with open("sectors_list.restart", "w") as fh:
+                fh.write(sectors)
         cfg = _p16_cfg(prec)
         hloc = np.zeros((1, 1, 1, 1))
         solver = EDSolver(cfg, hloc, log=lambda m: None, mesh=rows)
@@ -2627,6 +2653,7 @@ def p16_rank(bath, sectors):
             collectives=dict(calls), held=len(held), peak_gib=_peak_gib(),
             stages={k: round(v, 3)
                     for k, v in sorted(solver.timers.acc.items())})
+        os.chdir("..")
     # one (6,6) matvec, sharded against unsharded (bitwise under
     # ozaki5x7), and the host-clock split of a sharded matvec: its
     # all-gather alone, the unsharded matvec in the same process
@@ -2667,7 +2694,7 @@ def p16_rank(bath, sectors):
     # (b) the flake on a sites=2 mesh
     sites = make_mesh(n_rows=1, n_sites=P16_RANKS, device="cuda")
     fcfg, fhloc, fbaths = _p16_flake()
-    os.makedirs("flake")
+    os.makedirs("flake", exist_ok=True)
     os.chdir("flake")
     reset_launches()
     torch.cuda.reset_peak_memory_stats()
@@ -2683,12 +2710,40 @@ def p16_rank(bath, sectors):
     return out
 
 
+def _file_lines(d):
+    """{name: number of lines} of the files in directory `d`."""
+    out = {}
+    for name in sorted(os.listdir(d)):
+        path = os.path.join(d, name)
+        if os.path.isfile(path):
+            with open(path) as fh:
+                out[name] = sum(1 for _ in fh)
+    return out
+
+
+def _same_files(label, got_dir, ref_dir, bad):
+    """Print and check that `got_dir` holds the file names and line counts
+    of `ref_dir`."""
+    got, ref = _file_lines(got_dir), _file_lines(ref_dir)
+    diff = sorted(n for n in set(got) | set(ref) if got.get(n) != ref.get(n))
+    print(f"phase 16 files {label}: {len(got)} files, {sum(got.values())} "
+          f"lines; the single-process run's {len(ref)} files, "
+          f"{sum(ref.values())} lines; differing: {diff}")
+    if diff or not ref:
+        bad.append(f"{label}: the shared directory's files differ from the "
+                   "single-process run's")
+
+
 def mesh_phases(device, work, bath=None, res7=None, secs7=None,
                 sectors=None):
     """Phase 16 (a)-(c) in a directory of its own. Without phase 7's
     results (``--phases 16``) it solves its own single-process references
-    on the initial bath first. Returns the launches per kernel of each
-    path (the ranks' launches summed)."""
+    on the initial bath first. The two ranks share one directory
+    (``ranks/shared``), where rank 0 alone writes: their files are checked
+    against phase 7's ozaki5x7 solve's (``P7_OZAKI_DIR``) and (b)'s
+    single-process flake's. Returns the launches per kernel of each path
+    (the ranks' launches summed)."""
+    import shutil
     import numpy as np
     import torch
     from dmft_ed_tpu_torch.bath import init_bath, pack_bath
@@ -2701,11 +2756,18 @@ def mesh_phases(device, work, bath=None, res7=None, secs7=None,
     os.mkdir("phase16")
     os.chdir("phase16")
     hloc = np.zeros((1, 1, 1, 1))
+    ref_dir = os.path.join(work, P7_OZAKI_DIR)
     if res7 is None:
         cfg = _p16_cfg("native", ed_sectors=False)
         bath = pack_bath(init_bath(cfg, hloc))
         res7, secs7 = {}, {}
+        ref_dir = os.path.join(os.getcwd(), P7_OZAKI_DIR)
         for prec in ("native", "ozaki5x7"):
+            if prec != "native":     # as phase 7 runs it
+                sectors = open("sectors_list.restart").read()
+                os.mkdir(ref_dir)
+                shutil.copy("sectors_list.restart", ref_dir)
+                os.chdir(ref_dir)
             t0 = time.time()
             torch.cuda.reset_peak_memory_stats()
             res7[prec] = EDSolver(_p16_cfg(prec, ed_sectors=prec != "native"),
@@ -2713,7 +2775,7 @@ def mesh_phases(device, work, bath=None, res7=None, secs7=None,
                                   device=device).solve(bath)
             torch.cuda.synchronize()
             secs7[prec] = (time.time() - t0, _peak_gib())
-        sectors = open("sectors_list.restart").read()
+        os.chdir(os.path.join(work, "phase16"))
     # (b)'s single-process reference, the batched solve
     fcfg, fhloc, fbaths = _p16_flake()
     os.mkdir("flake")
@@ -2732,6 +2794,13 @@ def mesh_phases(device, work, bath=None, res7=None, secs7=None,
                       backend="gloo", threads=2)
     dt_ranks = time.time() - t0
     out, bad = {}, []
+    shared = os.path.join("ranks", "shared")
+    for prec in ("native", "ozaki5x7"):
+        _same_files(f"(a) {prec}", os.path.join(shared, prec), ref_dir, bad)
+    _same_files("(b) flake", os.path.join(shared, "flake"), "flake", bad)
+    if _file_lines(shared):
+        bad.append("(a-b) the ranks wrote files outside their solves' "
+                   "directories")
     for prec in ("native", "ozaki5x7"):
         ref = _solve_values(res7[prec])
         for rk, rr in enumerate(ranks):

@@ -16,6 +16,7 @@ from typing import Tuple
 import numpy as np
 
 from .config import EDConfig
+from .parallel.mesh import from_rank0, writes_files
 
 
 # ----------------------------------------------------------------------
@@ -196,18 +197,17 @@ def atomic_soc_jz(nspin: int = 2, norb: int = 3) -> np.ndarray:
 # ----------------------------------------------------------------------
 
 def search_variable(cfg: EDConfig, var: float, ntmp: float, state: dict,
-                    log=None) -> Tuple[float, bool]:
+                    log=None, mesh=None) -> Tuple[float, bool]:
     """One step of the reference's compressibility-based mu search
     (ed_search_variable). `state` is caller-held mutable memory across DMFT
-    iterations. Returns (new_var, density_converged)."""
+    iterations. `mesh`: the solver's parallel.Mesh, if any — only its rank
+    0 reads the compressibility restart file and writes the iteration
+    files. Returns (new_var, density_converged)."""
     count = state.get("count", 0) + 1
     state["count"] = count
     if count == 1:
-        chich = cfg.ndelta
-        if os.path.exists("var_compressibility.restart"):
-            with open("var_compressibility.restart") as fh:
-                chich = float(fh.read().split()[0])
-        state["chich"] = chich
+        state["chich"] = from_rank0(mesh, lambda: _read_compressibility(
+            cfg.ndelta))
         state["var_old"] = var
         state["nold"] = ntmp
     else:
@@ -225,6 +225,8 @@ def search_variable(cfg: EDConfig, var: float, ntmp: float, state: dict,
         log(f"n    = {ntmp:16.9f} | instead of {cfg.nread:15.9f}")
         log(f"dn   = {ndiff:16.9E} / {cfg.nerr:16.9E}")
         log(f"var  = {var_new:16.9f}")
+    if not writes_files(mesh):
+        return float(var_new), bool(abs(ndiff) <= cfg.nerr)
     try:
         mode = "a" if count > 1 else "w"
         with open("search_variable_iteration_info.ed", mode) as fh:
@@ -238,10 +240,18 @@ def search_variable(cfg: EDConfig, var: float, ntmp: float, state: dict,
     return float(var_new), bool(abs(ndiff) <= cfg.nerr)
 
 
+def _read_compressibility(default: float) -> float:
+    """var_compressibility.restart's value, else `default`."""
+    if not os.path.exists("var_compressibility.restart"):
+        return default
+    with open("var_compressibility.restart") as fh:
+        return float(fh.read().split()[0])
+
+
 def search_chemical_potential(cfg: EDConfig, var: float, ntmp: float,
                               converged: bool, state: dict, log=None,
-                              suffix: str = "", niter: int = 10
-                              ) -> Tuple[float, bool]:
+                              suffix: str = "", niter: int = 10,
+                              mesh=None) -> Tuple[float, bool]:
     """Adaptive-threshold/step bisection mu search
     (search_chemical_potential, ED_AUX_FUNX.f90:567-672).
 
@@ -254,7 +264,7 @@ def search_chemical_potential(cfg: EDConfig, var: float, ntmp: float,
     DMFT convergence flag, returned possibly reset to False. `niter`
     bounds the per-threshold iteration count before threshold reduction is
     abandoned (the reference's `niter` is an unset module variable — we
-    expose it with a sane default)."""
+    expose it with a sane default). `mesh`: as in search_variable."""
     nratio = 0.5
     ndiff = ntmp - cfg.nread
     st = state
@@ -294,11 +304,12 @@ def search_chemical_potential(cfg: EDConfig, var: float, ntmp: float,
         log(f"shift= {nindex * st['ndelta']:16.9E}")
         log(f"var  = {var:15.9f}")
         log(f"dn   = {ndiff:16.9E}/{nth:16.9E}")
-    try:
-        with open(f"search_mu_iteration{suffix}.ed", "a") as fh:
-            fh.write(f"{var} {ntmp} {ndiff}\n")
-    except OSError:
-        pass
+    if writes_files(mesh):
+        try:
+            with open(f"search_mu_iteration{suffix}.ed", "a") as fh:
+                fh.write(f"{var} {ntmp} {ndiff}\n")
+        except OSError:
+            pass
     # threshold tightening: inside nth + DMFT converged + nth still > nerr
     if st["ireduce"] and abs(ndiff) < nth and converged and nth > cfg.nerr:
         st["nth_magnitude_old"] = st["nth_magnitude"]

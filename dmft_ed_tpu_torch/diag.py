@@ -47,7 +47,8 @@ from .hamiltonian import (build_sector_hamiltonian, assemble_dense,
 from .lanczos import (_sizes, eigs_lanczos_op, lanczos_tridiag_op,
                       tridiag_eigh)
 from .parallel.hxv import solve_sector_sharded
-from .parallel.mesh import rows_sharded, site_chunk, sites_sharded
+from .parallel.mesh import (from_rank0, rows_sharded, site_chunk,
+                            sites_sharded, writes_files)
 
 
 @dataclass
@@ -63,7 +64,7 @@ class DiagState:
 
 
 def sectors_mask(cfg: EDConfig, table: SectorTable,
-                 suffix: str = "") -> np.ndarray:
+                 suffix: str = "", mesh=None) -> np.ndarray:
     """ed_sectors restriction from sectors_list restart file
     (ed_pre_diag, ED_DIAG.f90:263-363).
 
@@ -73,10 +74,17 @@ def sectors_mask(cfg: EDConfig, table: SectorTable,
     ed_sectors_shift. (The reference's inner n-shift loop accumulates M
     across the sign loop — a transcription slip; the intended independent
     +/-shift of each qn is implemented here.) The candidate audit trail
-    goes to ``list_of_sectors<suffix>.ed`` as in ED_DIAG.f90:283-356."""
-    mask = np.ones(len(table), dtype=bool)
+    goes to ``list_of_sectors<suffix>.ed`` as in ED_DIAG.f90:283-356.
+    With a `mesh`, rank 0 alone wrote the restart file: it reads it, writes
+    the audit trail and sends every rank the mask."""
     if not cfg.ed_sectors:
-        return mask
+        return np.ones(len(table), dtype=bool)
+    return from_rank0(mesh, lambda: _read_sectors_mask(cfg, table, suffix))
+
+
+def _read_sectors_mask(cfg: EDConfig, table: SectorTable,
+                       suffix: str) -> np.ndarray:
+    mask = np.ones(len(table), dtype=bool)
     path = f"sectors_list{suffix}.restart"
     if not os.path.exists(path):
         return mask
@@ -448,7 +456,7 @@ def diagonalize(cfg: EDConfig, bath: Bath, hloc: np.ndarray,
             state.neigen_sector[sec.index] = min(sec.dim,
                                                  cfg.lanc_nstates_sector)
 
-    smask = sectors_mask(cfg, table, suffix)
+    smask = sectors_mask(cfg, table, suffix, mesh)
     tmask = table.twin_mask() if cfg.ed_twin else np.ones(len(table), bool)
     finite_t = state.lanc_nstates_total > 1
 
@@ -547,7 +555,7 @@ def diagonalize(cfg: EDConfig, bath: Bath, hloc: np.ndarray,
                 for p in buckets[routes[pos]]:
                     pending[p] = res[sweep[p][0].index]
             evals, evecs = pending.pop(pos)
-        _append_eigenvalues(suffix, sec, evals)
+        _append_eigenvalues(suffix, sec, evals, mesh)
 
         if finite_t:
             for e, v in zip(evals, evecs):
@@ -564,14 +572,18 @@ def diagonalize(cfg: EDConfig, bath: Bath, hloc: np.ndarray,
                     slist.add(e, v, sec, table, twin=tflag)
 
     # ---- post-diag (ED_DIAG.f90:383-566)
-    zeta = _post_diag(cfg, table, slist, state, finite_t, suffix, log)
+    zeta = _post_diag(cfg, table, slist, state, finite_t, suffix, log,
+                      mesh)
     if log and cfg.ed_verbose >= 2:
         log(f"Diagonalization done in {time.time() - t0:.2f}s: "
             f"{len(slist)} states, Egs={slist.emin:.12f}, Z={zeta:.6f}")
     return slist, zeta, state
 
-def _append_eigenvalues(suffix: str, sec, evals) -> None:
-    """eigenvalues_list file (ED_DIAG.f90:238-243, appended per sector)."""
+def _append_eigenvalues(suffix: str, sec, evals, mesh=None) -> None:
+    """eigenvalues_list file (ED_DIAG.f90:238-243, appended per sector;
+    on a mesh by rank 0 alone)."""
+    if not writes_files(mesh):
+        return
     try:
         with open(f"eigenvalues_list{suffix}.ed", "a") as fh:
             fh.write(f"# sector {sec.index + 1} {sector_label(sec)}\n")
@@ -582,7 +594,7 @@ def _append_eigenvalues(suffix: str, sec, evals) -> None:
 
 
 def _post_diag(cfg: EDConfig, table, slist, state: DiagState,
-               finite_t: bool, suffix: str, log=None) -> float:
+               finite_t: bool, suffix: str, log=None, mesh=None) -> float:
     """Finite-T spectrum adaptation after a sector sweep
     (ED_DIAG.f90:445-566): histogram_states file, per-sector
     neigen_sector feedback, Boltzmann-cutoff trimming and
@@ -593,16 +605,17 @@ def _post_diag(cfg: EDConfig, table, slist, state: DiagState,
     if not finite_t:
         return zeta
     # histogram of sectors contributing to the kept spectrum
-    # (histogram_states.ed, ED_DIAG.f90:474-490)
+    # (histogram_states.ed, ED_DIAG.f90:474-490; rank 0 of a mesh)
     try:
         counts_h = np.zeros(len(table), dtype=int)
         for s in slist:
             counts_h[s.sector.index] += 1
-        with open(f"histogram_states{suffix}.ed", "a") as fh:
-            for i, c in enumerate(counts_h):
-                if c:
-                    fh.write(f"{i + 1} {c}\n")
-            fh.write("\n")
+        if writes_files(mesh):
+            with open(f"histogram_states{suffix}.ed", "a") as fh:
+                for i, c in enumerate(counts_h):
+                    if c:
+                        fh.write(f"{i + 1} {c}\n")
+                fh.write("\n")
     except OSError:
         pass
     # per-sector neigen feedback (ED_DIAG.f90:494-515)
@@ -634,9 +647,11 @@ def _post_diag(cfg: EDConfig, table, slist, state: DiagState,
 
 
 def write_state_list(cfg: EDConfig, slist: StateList, zeta: float,
-                     suffix: str = "") -> None:
+                     suffix: str = "", mesh=None) -> None:
     """state_list<suffix>.ed + .restart files (print_state_list +
-    sectors_list restart, ED_DIAG.f90:396-450)."""
+    sectors_list restart, ED_DIAG.f90:396-450); on a mesh, rank 0's."""
+    if not writes_files(mesh):
+        return
     beta = cfg.beta
     egs = slist.emin
     for name in (f"state_list{suffix}.ed", f"state_list{suffix}.restart"):
@@ -710,7 +725,7 @@ def diagonalize_sites(cfg: EDConfig, baths, hlocs, states=None, log=None,
                                                   cfg.lanc_nstates_sector)
     if suffixes is None:
         suffixes = [f"_ineq{i + 1:04d}" for i in range(nsites)]
-    smasks = [sectors_mask(cfgs[i], table, suffixes[i])
+    smasks = [sectors_mask(cfgs[i], table, suffixes[i], mesh)
               for i in range(nsites)]
     tmask = table.twin_mask() if cfg.ed_twin else np.ones(len(table), bool)
     finite_t = any(st.lanc_nstates_total > 1 for st in states)
@@ -748,7 +763,7 @@ def diagonalize_sites(cfg: EDConfig, baths, hlocs, states=None, log=None,
                 ne = neigen[i]
                 evals = evals_b[bi][:ne]
                 evecs = evecs_b[bi][:, :ne].T.contiguous()
-                _append_eigenvalues(suffixes[i], sec, evals)
+                _append_eigenvalues(suffixes[i], sec, evals, mesh)
                 _collect(cfg, table, slists[i], sec, evals, evecs,
                          finite_t, states[i], oldzero, i, twin=tflag)
             continue
@@ -787,7 +802,7 @@ def diagonalize_sites(cfg: EDConfig, baths, hlocs, states=None, log=None,
             for bi, i in enumerate(idx):
                 k = min(neigen[i], len(evecs_b[bi]))
                 evals = np.asarray(evals_b[bi][:k])
-                _append_eigenvalues(suffixes[i], sec, evals)
+                _append_eigenvalues(suffixes[i], sec, evals, mesh)
                 _collect(cfg, table, slists[i], sec, evals,
                          evecs_b[bi][:k], finite_t, states[i], oldzero, i,
                          twin=tflag)
@@ -800,7 +815,7 @@ def diagonalize_sites(cfg: EDConfig, baths, hlocs, states=None, log=None,
                         cfg, hams[i], neigen[i], rng, device, timers=timers,
                         niter_mem=states[i].lanc_niter_sector, log=log,
                         mesh=mesh)
-                _append_eigenvalues(suffixes[i], sec, evals)
+                _append_eigenvalues(suffixes[i], sec, evals, mesh)
                 _collect(cfg, table, slists[i], sec, evals, evecs,
                          finite_t, states[i], oldzero, i, twin=tflag)
         del hams
@@ -809,7 +824,7 @@ def diagonalize_sites(cfg: EDConfig, baths, hlocs, states=None, log=None,
     # the reference runs per site (ED_DIAG.f90:445-566), shared with the
     # single-impurity sweep
     zetas = [_post_diag(cfg, table, slists[i], states[i], finite_t,
-                        suffixes[i], log) for i in range(nsites)]
+                        suffixes[i], log, mesh) for i in range(nsites)]
     if log and cfg.ed_verbose >= 2:
         log(f"Site-batched diagonalization of {nsites} sites done in "
             f"{time.time() - t0:.2f}s: Egs="

@@ -27,7 +27,7 @@ from scipy.optimize import minimize
 from .config import EDConfig
 from .bath import unpack_bath, pack_bath, save_bath
 from .bath_fns import delta, fdelta, g0and, f0and
-from .parallel.mesh import site_chunk, sites_sharded
+from .parallel.mesh import site_chunk, sites_sharded, writes_files
 
 
 def _param_bound(xw: np.ndarray) -> float:
@@ -242,7 +242,8 @@ def chi2_fitgf_sites(cfg: EDConfig, fgs, baths_flat, hlocs,
     mesh form of the reference's per-rank site fits,
     ED_FIT_CHI2.f90:187-225). The mesh's device replaces `device`.
     Returns the updated [S, Nb] bath stack; each site's bath is saved with
-    its suffix (``<hfile>_ineq####.restart`` by default)."""
+    its suffix (``<hfile>_ineq####.restart`` by default), on a mesh by
+    rank 0 alone."""
     from .device import resolve
     device = mesh.device if mesh is not None else resolve(device)
     S = len(baths_flat)
@@ -370,7 +371,7 @@ def chi2_fitgf_sites(cfg: EDConfig, fgs, baths_flat, hlocs,
                                 else np.asarray(fgs_an[i]),
                                 mask=masks[i], suffix=suffixes[i], log=log,
                                 save=save, precondition=precondition,
-                                device=device)
+                                device=device, mesh=mesh)
             continue
         b = bs[i]
         p_fit = inject(torch.as_tensor(xmat[i], device=device))
@@ -378,13 +379,14 @@ def chi2_fitgf_sites(cfg: EDConfig, fgs, baths_flat, hlocs,
             setattr(b, name, val.detach().cpu().numpy())
         if log:
             log(f"chi^2|iter{suffixes[i]}=  {per[i]:.9E} | {res.nit}")
-        try:
-            with open(f"chi2fit_results{suffixes[i]}.ed", "a") as fh:
-                fh.write(f"{per[i]:18.9E} {res.nit:5d}\n")
-        except OSError:
-            pass
-        if save:
-            save_bath(b, suffix=suffixes[i])
+        if writes_files(mesh):
+            try:
+                with open(f"chi2fit_results{suffixes[i]}.ed", "a") as fh:
+                    fh.write(f"{per[i]:18.9E} {res.nit:5d}\n")
+            except OSError:
+                pass
+            if save:
+                save_bath(b, suffix=suffixes[i])
         out[i] = pack_bath(b)
     return out
 
@@ -393,7 +395,8 @@ def chi2_fitgf(cfg: EDConfig, fg, bath_flat: np.ndarray,
                hloc: np.ndarray, ispin: Optional[int] = None,
                iorb: Optional[int] = None, fg_an=None, mask=None,
                suffix: str = "", log=None, save: bool = True,
-               precondition: bool = True, device="cuda") -> np.ndarray:
+               precondition: bool = True, device="cuda",
+               mesh=None) -> np.ndarray:
     """Fit the bath to the target function fg [Nspin,Nspin,Norb,Norb,Lmats]
     (Weiss field if cg_scheme='weiss', hybridization Δ if 'delta';
     fg_an: the anomalous target for ed_mode='superc').
@@ -402,6 +405,9 @@ def chi2_fitgf(cfg: EDConfig, fg, bath_flat: np.ndarray,
     polish — True only on the FIRST (cold-start) fit of a DMFT loop, as in
     the reference port (EDSolver.chi2_fitgf passes it). Normal mode only:
     the superc fit starts on the weiss objective, as the reference's does.
+
+    mesh: the solver's parallel.Mesh, if any — every rank fits, and only
+    rank 0 writes chi2fit_results and the bath restart file.
 
     Returns the updated flat bath vector (ed_chi2_fitgf)."""
     b = unpack_bath(cfg, bath_flat, mask)
@@ -483,11 +489,12 @@ def chi2_fitgf(cfg: EDConfig, fg, bath_flat: np.ndarray,
         setattr(b, name, val.detach().cpu().numpy())
     if log:
         log(f"chi^2|iter{suffix}=  {res.fun:.9E} | {res.nit}")
-    try:
-        with open(f"chi2fit_results{suffix}.ed", "a") as fh:
-            fh.write(f"{res.fun:18.9E} {res.nit:5d}\n")
-    except OSError:
-        pass
-    if save:
-        save_bath(b, suffix=suffix)
+    if writes_files(mesh):
+        try:
+            with open(f"chi2fit_results{suffix}.ed", "a") as fh:
+                fh.write(f"{res.fun:18.9E} {res.nit:5d}\n")
+        except OSError:
+            pass
+        if save:
+            save_bath(b, suffix=suffix)
     return pack_bath(b)

@@ -27,6 +27,7 @@ import torch
 
 from .config import EDConfig
 from . import grids
+from .parallel.mesh import writes_files
 
 
 def bethe_dos(e: np.ndarray, w: float) -> np.ndarray:
@@ -835,11 +836,14 @@ class ConvergenceMonitor:
     `iloop < nloop` guard, and an exhausted-but-unconverged loop logs an
     explicit max-iterations warning instead of masquerading as converged
     (the reference prints "Max number of iterations reached"). The final
-    state is exposed as `monitor.converged` / `monitor.exhausted`."""
+    state is exposed as `monitor.converged` / `monitor.exhausted`.
+    `mesh`: the solver's parallel.Mesh, if any — only its rank 0 appends
+    to error.err."""
 
     def __init__(self, threshold: float, nsuccess: int = 1,
-                 nloop: int = 100):
+                 nloop: int = 100, mesh=None):
         self.threshold = threshold
+        self.mesh = mesh
         self.nsuccess = nsuccess
         self.nloop = nloop
         self._old = None
@@ -876,10 +880,11 @@ class ConvergenceMonitor:
             log(f"WARNING: max number of DMFT loops ({self.nloop}) "
                 f"reached without convergence (error={self.error:.8E} "
                 f"> {self.threshold:.8E})")
-        try:
-            with open("error.err", "a") as fh:
-                fh.write(f"{self.count} {self.error:.12E}\n")
-        except OSError:
-            pass
+        if writes_files(self.mesh):
+            try:
+                with open("error.err", "a") as fh:
+                    fh.write(f"{self.count} {self.error:.12E}\n")
+            except OSError:
+                pass
         return conv
 

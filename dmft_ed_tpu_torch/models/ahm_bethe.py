@@ -60,7 +60,8 @@ def run(cfg: EDConfig | None = None, le: int = 500, wbethe=1.0,
         solver = EDSolver(cfg, hloc, device=device)
     bath = solver.init_solver()
     bath_prev = bath.copy()
-    monitor = ConvergenceMonitor(cfg.dmft_error, cfg.nsuccess, cfg.nloop)
+    monitor = ConvergenceMonitor(cfg.dmft_error, cfg.nsuccess, cfg.nloop,
+                                 mesh=solver.mesh)
     converged = False
     iloop = 0
     res = None
@@ -89,7 +90,7 @@ def run(cfg: EDConfig | None = None, le: int = 500, wbethe=1.0,
         if cfg.nread != 0.0:
             xmu, conv2 = search_variable(cfg, xmu,
                                          float(res.observables.dens.sum()),
-                                         sstate, _log)
+                                         sstate, _log, mesh=solver.mesh)
             converged = converged and conv2
             cfg = cfg.replace(xmu=xmu)
             solver.cfg = cfg

@@ -23,6 +23,7 @@ from ..lattice import (bethe_bands, gloc_dos, self_consistency,
                        kinetic_energy, ConvergenceMonitor)
 from ..aux import search_variable
 from .. import io as edio
+from ..parallel.mesh import writes_files
 
 
 @dataclass
@@ -74,7 +75,8 @@ def run(cfg: EDConfig | None = None, le: int = 500, wbethe=1.0, dbethe=0.0,
     bath_prev = bath.copy()
     weiss_prev = None
 
-    monitor = ConvergenceMonitor(cfg.dmft_error, cfg.nsuccess, cfg.nloop)
+    monitor = ConvergenceMonitor(cfg.dmft_error, cfg.nsuccess, cfg.nloop,
+                                 mesh=solver.mesh)
     converged = False
     iloop = 0
     weiss = None
@@ -119,13 +121,15 @@ def run(cfg: EDConfig | None = None, le: int = 500, wbethe=1.0, dbethe=0.0,
         if cfg.nread != 0.0:
             xmu, conv2 = search_variable(cfg, xmu, float(res.observables.dens
                                                          .sum()),
-                                         search_state, _log)
+                                         search_state, _log,
+                                         mesh=solver.mesh)
             converged = converged and conv2
             cfg = cfg.replace(xmu=xmu)
             solver.cfg = cfg
     ekin = kinetic_energy(cfg, eb, db, h0, res.smats)
     wm = np.pi / cfg.beta * (2 * np.arange(1, cfg.lmats + 1) - 1)
-    edio.splot("Gloc_iw.ed", wm, gmats[0, 0, 0, 0])
+    if writes_files(solver.mesh):
+        edio.splot("Gloc_iw.ed", wm, gmats[0, 0, 0, 0])
     return BetheResult(converged=converged, iterations=iloop, bath=bath,
                        smats=res.smats, sreal=res.sreal, gmats=gmats,
                        greal=greal, weiss=weiss, dens=res.observables.dens,

@@ -69,7 +69,8 @@ def run(cfg: EDConfig | None = None, nk: int = 8, t: float = 0.5,
         solver = EDSolver(cfg, hloc, device=device)
     bath = solver.init_solver()
     bath_prev = bath.copy()
-    monitor = ConvergenceMonitor(cfg.dmft_error, cfg.nsuccess, cfg.nloop)
+    monitor = ConvergenceMonitor(cfg.dmft_error, cfg.nsuccess, cfg.nloop,
+                                 mesh=solver.mesh)
     converged, iloop = False, 0
     res = gm = weiss = None
     while not converged and iloop < cfg.nloop:

@@ -14,8 +14,9 @@ replicated result, so a DMFT loop runs unchanged on every rank.
     the members of a stacked restart) over ranks, the reference's site
     loop over MPI ranks (ED_MAIN.f90:576-678).
 
-Collectives are ``all_gather`` and ``all_reduce`` only, which both NCCL
-and gloo carry. The backend is whatever the caller gave
+Collectives are ``all_gather`` and ``all_reduce``, and the broadcast of
+what rank 0 reads back from its own files (``from_rank0``), which both
+NCCL and gloo carry. The backend is whatever the caller gave
 ``init_process_group``: NCCL where each rank has its own card, gloo on the
 CPU or for ranks that share one card. Under gloo, a collective on CUDA
 tensors goes through host copies.
@@ -128,6 +129,39 @@ def _axis_split(mesh, axis: str) -> bool:
         raise TypeError(f"mesh must be a parallel.Mesh (make_mesh), not "
                         f"{type(mesh).__name__}")
     return mesh.shape[axis] > 1
+
+
+def writes_files(mesh: Optional[Mesh]) -> bool:
+    """Whether this rank writes the solver's output files: always without
+    a mesh (independent solves, even inside a process group, keep every
+    file), and only on the mesh's global rank 0 with one — the reference
+    writes on the MPI master only. Every rank still returns the whole
+    result and reads rank 0's files through `from_rank0`, so the ranks of
+    a mesh may share one working directory."""
+    if mesh is None:
+        return True
+    return dist.get_rank() == 0
+
+
+def from_rank0(mesh: Optional[Mesh], read):
+    """``read()`` on the mesh's global rank 0, its value (or its exception)
+    broadcast to every rank; without a mesh, ``read()`` here. Every rank of
+    a mesh calls it at the same point: a file that rank 0 alone wrote is
+    then read back the same on every rank, whether the ranks share one
+    working directory or have one each."""
+    if mesh is None or dist.get_world_size() == 1:
+        return read()
+    box = [None]
+    if dist.get_rank() == 0:
+        try:
+            box[0] = (True, read())
+        except Exception as exc:        # raised on every rank below
+            box[0] = (False, exc)
+    dist.broadcast_object_list(box, src=0)
+    ok, value = box[0]
+    if not ok:
+        raise value
+    return value
 
 
 def sites_sharded(mesh: Optional[Mesh]) -> bool:

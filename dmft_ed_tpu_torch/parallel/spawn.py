@@ -9,7 +9,9 @@ from one program. (A user runs the ranks under ``torchrun`` instead.)
 starts `world` processes of ``python -m dmft_ed_tpu_torch.parallel.spawn``;
 rank r joins a process group (``init_process_group`` with the given
 backend, a ``FileStore`` under `workdir` and a timeout), changes into
-``workdir/rank<r>``, calls ``fn(**kwargs)`` and pickles its return value.
+``workdir/shared``, one directory for every rank, as ``torchrun`` started
+in one directory gives (a rank function that needs a directory of its
+own makes it), calls ``fn(**kwargs)`` and pickles its return value.
 The parent waits for every rank at most `timeout` seconds, kills any left
 and raises if one failed; the ranks' output goes to
 ``workdir/rank<r>.log``. A rank imports torch, the port and the target's
@@ -113,7 +115,7 @@ def _rank_main(job_path: str, rank: int) -> None:
         timeout=datetime.timedelta(seconds=job["timeout"]))
     try:
         fn = _load(job["target"])
-        here = os.path.join(workdir, f"rank{rank}")
+        here = os.path.join(workdir, "shared")
         os.makedirs(here, exist_ok=True)
         os.chdir(here)
         res = fn(**job["kwargs"])

@@ -20,6 +20,7 @@ from .bath import (init_bath, pack_bath, unpack_bath, replica_mask,
                    get_bath_dimension)
 from .device import resolve
 from .diag import DiagState, diagonalize, write_state_list
+from .parallel.mesh import from_rank0, writes_files
 from .observables import (compute_observables, local_energy,
                           quasiparticle_weight, Observables, EnergyObs)
 from . import io as edio
@@ -74,7 +75,10 @@ class EDSolver:
         and build their GF and chi chains row-sharded over its ranks (the
         reference's MPI solver, ED_MAIN.f90:103-152, 284-327). Every rank
         runs this solver on the same inputs and gets the whole result; the
-        mesh's device replaces `device`."""
+        mesh's device replaces `device`. On a mesh only global rank 0
+        writes the output files (parallel.mesh.writes_files) and every rank
+        reads them back through it (parallel.mesh.from_rank0), so the
+        ranks may share one working directory, as under ``torchrun``."""
         cfg.validate()
         self.cfg = cfg
         self.mesh = mesh
@@ -100,8 +104,11 @@ class EDSolver:
         return get_bath_dimension(self.cfg, self.hloc)
 
     def init_solver(self) -> np.ndarray:
-        """ed_init_solver: build + pack the initial bath."""
-        b = init_bath(self.cfg, self.hloc, self.suffix)
+        """ed_init_solver: build + pack the initial bath (on a mesh, rank
+        0 reads the bath restart file it wrote and sends every rank the
+        bath)."""
+        b = from_rank0(self.mesh,
+                       lambda: init_bath(self.cfg, self.hloc, self.suffix))
         if self.mask is not None:
             b.mask = self.mask
         return pack_bath(b)
@@ -130,7 +137,7 @@ class EDSolver:
         finite_t = cfg.finite_t or self.diag_state.lanc_nstates_total > 1
         finite_t = finite_t and len(slist) > 1
         res.egs, res.zeta, res.nstates = slist.emin, zeta, len(slist)
-        write_state_list(cfg, slist, zeta, self.suffix)
+        write_state_list(cfg, slist, zeta, self.suffix, self.mesh)
         timers = self.timers
         if cfg.ed_mode == "superc":
             from .gf_superc import build_gf_superc, build_sigma_superc
@@ -169,6 +176,32 @@ class EDSolver:
                                       finite_t)
         simp, zimp = quasiparticle_weight(cfg, res.smats)
         so = cfg.ed_mode == "nonsu2"    # spin-offdiag components in files
+        writes = writes_files(self.mesh)
+        if writes:
+            self._write_files(res, simp, zimp, so)
+        if cfg.bath_type == "replica":
+            # bath density matrix, replica baths only
+            # (ED_OBSERVABLES.f90:591-658 computes bth_density_matrix under
+            # the same gate); one (s,s',a,b) row per bath copy
+            from .observables import bath_density_matrix
+            with self.timers("bath_dm"):
+                res.bath_dm = bath_density_matrix(cfg, slist, zeta, finite_t)
+            if writes:
+                _write_bath_dm(cfg, res.bath_dm, self.suffix)
+        if cfg.ed_verbose >= 2 and self.log:
+            self.log(self.timers.report())
+        if self.log:
+            o = res.observables
+            self.log("dens=" + " ".join(f"{x:.9f}" for x in o.dens)
+                     + "  docc=" + " ".join(f"{x:.9f}" for x in o.docc)
+                     + f"  egs={res.egs:.9f}")
+        self.result = res
+        return res
+
+    def _write_files(self, res, simp, zimp, so) -> None:
+        """The solve's Sigma/G/G0 (as the print flags ask), observables,
+        energy and impurity density matrix files."""
+        cfg = self.cfg
         if cfg.ed_print_sigma:
             edio.print_function(cfg, "Sigma", res.smats, res.sreal,
                                 self.suffix, spin_offdiag=so)
@@ -194,23 +227,6 @@ class EDSolver:
         if rho is not None:
             np.savetxt(f"imp_density_matrix{self.suffix}.ed",
                        np.column_stack([rho.real, rho.imag]), fmt="%18.12f")
-        if cfg.bath_type == "replica":
-            # bath density matrix, replica baths only
-            # (ED_OBSERVABLES.f90:591-658 computes bth_density_matrix under
-            # the same gate); one (s,s',a,b) row per bath copy
-            from .observables import bath_density_matrix
-            with self.timers("bath_dm"):
-                res.bath_dm = bath_density_matrix(cfg, slist, zeta, finite_t)
-            _write_bath_dm(cfg, res.bath_dm, self.suffix)
-        if cfg.ed_verbose >= 2 and self.log:
-            self.log(self.timers.report())
-        if self.log:
-            o = res.observables
-            self.log("dens=" + " ".join(f"{x:.9f}" for x in o.dens)
-                     + "  docc=" + " ".join(f"{x:.9f}" for x in o.docc)
-                     + f"  egs={res.egs:.9f}")
-        self.result = res
-        return res
 
     def _solve_chi(self, res, bath, slist, zeta, finite_t, pre) -> None:
         """The susceptibilities the flags ask for, each written with
@@ -236,7 +252,8 @@ class EDSolver:
                 with self.timers("chi_resolvents"):
                     out = build(*args, device=self.device, mesh=self.mesh)
             setattr(res, field_, out)
-            edio.write_chi(cfg, name, *out, self.suffix)
+            if writes_files(self.mesh):
+                edio.write_chi(cfg, name, *out, self.suffix)
 
     # ------------------------------------------------------------------
     def chi2_fitgf(self, fg, bath_flat: np.ndarray, ispin=None,
@@ -251,15 +268,17 @@ class EDSolver:
                               iorb=iorb, fg_an=fg_an, mask=self.mask,
                               suffix=self.suffix,
                               log=self.log, precondition=first,
-                              device=self.device)
+                              device=self.device, mesh=self.mesh)
 
     # ------------------------------------------------------------------
     def read_sigma(self):
         """Re-ingest printed impSigma files (ed_read_impSigma restart path,
         ED_IO/read_impSigma.f90). Returns (Smats, Sreal); nonsu2 restores
-        the spin-offdiagonal components too (:117-216)."""
-        return edio.read_function(self.cfg, "Sigma", self.suffix,
-                                  spin_offdiag=self.cfg.ed_mode == "nonsu2")
+        the spin-offdiagonal components too (:117-216). On a mesh, rank 0
+        reads the files it wrote and sends every rank their contents."""
+        return from_rank0(self.mesh, lambda: edio.read_function(
+            self.cfg, "Sigma", self.suffix,
+            spin_offdiag=self.cfg.ed_mode == "nonsu2"))
 
     # ------------------------------------------------------------------
     # ed_get_* accessors (ED_IO.f90:274-327)
@@ -322,6 +341,8 @@ class EDSolver:
         from .aux import quantum_soc_operators
         ops = quantum_soc_operators(self.cfg,
                                     self.result.observables.imp_density_matrix)
+        if not writes_files(self.mesh):
+            return ops
         with open(f"J_imp{self.suffix}.ed", "w") as fh:
             fh.write("# Jx Jy Jz Jx^2 Jy^2 Jz^2 L.S\n")
             fh.write(" ".join(f"{v.real:18.12f}" for v in ops["J"])

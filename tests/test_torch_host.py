@@ -264,3 +264,15 @@ def test_ast_no_jax_imports():
         for mod in _imports(f):
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "dmft_ed_tpu"), (f, mod)
+
+
+def test_slow_port_tests_import_only_the_port():
+    """The port's slow physics files (tests/test_torch_slow_*.py) import
+    neither jax nor the JAX package, so they run on a card's machine
+    without the reference."""
+    files = sorted((REPO / "tests").glob("test_torch_slow_*.py"))
+    assert len(files) >= 6
+    for f in files:
+        for mod in _imports(f):
+            top = mod.split(".")[0]
+            assert top not in ("jax", "jaxlib", "dmft_ed_tpu"), (f, mod)
