@@ -17,6 +17,15 @@ the host, as in the reference: ``betas`` and ``T`` are read once per
 restart. Coefficients take the vectors' real dtype (float32 for float32 /
 complex64 vectors, as in the reference).
 
+Under a running ``torch.profiler`` (timer.py) every matvec records a
+``hamiltonian.apply_op`` span and the counter ``lanczos.matvecs``; the
+thick restart records a ``lanczos.eigs_lanczos`` span around each solve,
+``lanczos.reorth`` around each step's Gram–Schmidt passes, norm and
+writes, ``lanczos.rayleigh_ritz`` around the host Rayleigh–Ritz with its
+reads, ``lanczos.restart`` around the restart's and the final Ritz
+vectors' device work, and counts its blocking host-device transfers in
+``lanczos.host_transfers``.
+
 Meshes (parallel/): with ``mesh=``, the ``*_op`` engines run on
 row-sharded sector vectors — flat vectors of this rank's rows of each
 (row-padded) block, under parallel.hxv's local operator. They are the
@@ -35,6 +44,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import timer
 from .hamiltonian import apply_op, flatten_blocks, unflatten_blocks
 from .parallel.hxv import row_gather
 from .parallel.mesh import rows_sharded, site_chunk, sites_sharded
@@ -142,6 +152,10 @@ class _Graphed:
         self.graphs = {}
 
     def __call__(self, x):
+        with _matvec_span(x):
+            return self._replay(x)
+
+    def _replay(self, x):
         key = (tuple(x.shape), x.dtype)
         if key not in self.graphs:
             x_in = x.clone()
@@ -160,6 +174,13 @@ class _Graphed:
         return y_out.clone()
 
 
+def _matvec_span(x):
+    """Count one matvec of x and open its span (timer.py: both only under
+    a running profiler)."""
+    timer.count("lanczos.matvecs")
+    return timer.span("hamiltonian.apply_op", x)
+
+
 def _op_matvec(spec, blocks, arrays, mesh=None):
     """The sector matvec on flat vectors. On a card, a multi-block
     operator without Ozaki terms (superc, nonsu2) replays from a CUDA
@@ -175,7 +196,11 @@ def _op_matvec(spec, blocks, arrays, mesh=None):
     if len(blocks) > 1 and arrays and arrays[0].is_cuda and gather is None \
             and not _spec_kinds(spec) & {"ozl", "ozr", "ozf"}:
         return _Graphed(mv)
-    return mv
+
+    def eager(x):
+        with _matvec_span(x):
+            return mv(x)
+    return eager
 
 
 def lanczos_tridiag_op(spec, blocks, arrays, v0, niter: int, mesh=None):
@@ -255,18 +280,20 @@ def _expand(matvec, V, T, j0: int, m: int, mesh=None):
     betas = []
     for j in range(j0, m):
         w = matvec(V[j])
-        h1 = _rows_sum(V.conj() @ w, mesh)
-        w = w - h1 @ V
-        h2 = _rows_sum(V.conj() @ w, mesh)
-        w = w - h2 @ V
-        h = h1 + h2
-        b = torch.sqrt(_rows_sum(_pdot_pair(w, w), mesh))
-        safe = b > _BREAKDOWN
-        V[j + 1] = torch.where(safe, one, zero) * w / torch.where(safe, b, one)
-        T[:, j] = h
-        T[j, :] = h.conj()
-        T[j + 1, j] = b
-        T[j, j + 1] = b
+        with timer.span("lanczos.reorth", V):
+            h1 = _rows_sum(V.conj() @ w, mesh)
+            w = w - h1 @ V
+            h2 = _rows_sum(V.conj() @ w, mesh)
+            w = w - h2 @ V
+            h = h1 + h2
+            b = torch.sqrt(_rows_sum(_pdot_pair(w, w), mesh))
+            safe = b > _BREAKDOWN
+            V[j + 1] = torch.where(safe, one, zero) * w \
+                / torch.where(safe, b, one)
+            T[:, j] = h
+            T[j, :] = h.conj()
+            T[j + 1, j] = b
+            T[j, j + 1] = b
         betas.append(b)
     return torch.stack(betas)
 
@@ -290,10 +317,18 @@ def _rayleigh_ritz(Th, betas_h, j0: int, ncv: int, k: int, tol: float):
     return evals_all, Y, m_eff, k_eff, beta_m, conv
 
 
+def _host_read(*xs):
+    """The tensors xs as numpy arrays on the host (blocking reads)."""
+    timer.count("lanczos.host_transfers", len(xs))
+    return [x.cpu().numpy() for x in xs]
+
+
 def _ritz_vectors(Y, k: int, V, m_eff: int):
     """[k, dim] = Y[:, :k]^T @ V[:m_eff] on V's device."""
-    Yk = torch.as_tensor(np.ascontiguousarray(Y[:, :k]), device=V.device)
-    return Yk.to(V.dtype).T @ V[:m_eff]
+    with timer.span("lanczos.restart", V):
+        timer.count("lanczos.host_transfers")
+        Yk = torch.as_tensor(np.ascontiguousarray(Y[:, :k]), device=V.device)
+        return Yk.to(V.dtype).T @ V[:m_eff]
 
 
 def _thick_restart(V, T, Y, evals_all, beta_m: float, k: int):
@@ -302,16 +337,18 @@ def _thick_restart(V, T, Y, evals_all, beta_m: float, k: int):
     row/column s = beta_m · Y[last, :k]."""
     ncv = V.shape[0] - 1
     ritz = _ritz_vectors(Y, k, V, ncv)
-    V[k] = V[ncv]
-    V[:k] = ritz
-    V[k + 1:] = 0
-    Tn = np.zeros((ncv + 1, ncv + 1), dtype=np.result_type(Y.dtype,
-                                                            np.float64))
-    Tn[np.arange(k), np.arange(k)] = evals_all[:k]
-    s = beta_m * Y[ncv - 1, :k]
-    Tn[k, :k] = np.conj(s)
-    Tn[:k, k] = s
-    T.copy_(torch.as_tensor(Tn, device=T.device).to(T.dtype))
+    with timer.span("lanczos.restart", V):
+        V[k] = V[ncv]
+        V[:k] = ritz
+        V[k + 1:] = 0
+        Tn = np.zeros((ncv + 1, ncv + 1),
+                      dtype=np.result_type(Y.dtype, np.float64))
+        Tn[np.arange(k), np.arange(k)] = evals_all[:k]
+        s = beta_m * Y[ncv - 1, :k]
+        Tn[k, :k] = np.conj(s)
+        Tn[:k, k] = s
+        timer.count("lanczos.host_transfers")
+        T.copy_(torch.as_tensor(Tn, device=T.device).to(T.dtype))
 
 
 def _sizes(dim: int, neigen: int, ncv: int, maxiter: int):
@@ -333,23 +370,27 @@ def eigs_lanczos(matvec, v0, neigen: int, ncv: int, maxiter: int = 512,
 
     Returns (evals [k_eff] ascending, numpy; evecs [k_eff, dim] on v0's
     device; matvec count)."""
-    dim = v0.shape[0] * (mesh.shape["rows"] if rows_sharded(mesh) else 1)
-    k, ncv, restarts = _sizes(dim, neigen, ncv, maxiter)
-    V = torch.zeros((ncv + 1, v0.shape[0]), dtype=v0.dtype, device=v0.device)
-    V[0] = v0 / _norm(v0, mesh)
-    T = torch.zeros((ncv + 1, ncv + 1), dtype=v0.dtype, device=v0.device)
-    niter = 0
-    j0 = 0
-    for _ in range(restarts):
-        betas = _expand(matvec, V, T, j0, ncv, mesh)
-        niter += ncv - j0
-        evals_all, Y, m_eff, k_eff, beta_m, conv = _rayleigh_ritz(
-            T.cpu().numpy(), betas.cpu().numpy(), j0, ncv, k, tol)
-        if conv or m_eff < ncv or niter >= maxiter:
-            break
-        _thick_restart(V, T, Y, evals_all, beta_m, k_eff)
-        j0 = k_eff
-    return evals_all[:k_eff], _ritz_vectors(Y, k_eff, V, m_eff), niter
+    with timer.span("lanczos.eigs_lanczos", v0):
+        dim = v0.shape[0] * (mesh.shape["rows"] if rows_sharded(mesh)
+                             else 1)
+        k, ncv, restarts = _sizes(dim, neigen, ncv, maxiter)
+        V = torch.zeros((ncv + 1, v0.shape[0]), dtype=v0.dtype,
+                        device=v0.device)
+        V[0] = v0 / _norm(v0, mesh)
+        T = torch.zeros((ncv + 1, ncv + 1), dtype=v0.dtype, device=v0.device)
+        niter = 0
+        j0 = 0
+        for _ in range(restarts):
+            betas = _expand(matvec, V, T, j0, ncv, mesh)
+            niter += ncv - j0
+            with timer.span("lanczos.rayleigh_ritz", V):
+                evals_all, Y, m_eff, k_eff, beta_m, conv = _rayleigh_ritz(
+                    *_host_read(T, betas), j0, ncv, k, tol)
+            if conv or m_eff < ncv or niter >= maxiter:
+                break
+            _thick_restart(V, T, Y, evals_all, beta_m, k_eff)
+            j0 = k_eff
+        return evals_all[:k_eff], _ritz_vectors(Y, k_eff, V, m_eff), niter
 
 
 def eigs_lanczos_op(spec, blocks, arrays, v0, neigen: int, ncv: int,
@@ -411,8 +452,7 @@ def eigs_lanczos_op_stacked(spec, blocks, arrays_stacked, V0, neigen: int,
         betas = torch.stack([_expand(mvs[s], V[s], T[s], j0, ncv)
                              for s in running])
         niter += ncv - j0
-        betas_h = betas.cpu().numpy()                   # [running, ncv - j0]
-        Th = T.cpu().numpy()
+        betas_h, Th = _host_read(betas, T)          # [running, ncv - j0]
         last = niter >= maxiter or it == restarts - 1
         still = []
         for i, s in enumerate(running):

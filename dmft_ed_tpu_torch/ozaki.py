@@ -29,12 +29,17 @@ zero columns add exact zeros to every product. The right stack is written
 transposed straight into its buffer, digit by digit (one int8 pass per
 digit, no extra pass over the f64 operand). ``slice_digits`` keeps the
 reference's layout.
+
+Under a running ``torch.profiler`` (timer.py) the products with a per-call
+operand record an ``ozaki.split`` span around that operand's digit
+extraction.
 """
 
 from __future__ import annotations
 
 import torch
 
+from . import timer
 from .kernels import digit_matmul
 from .kernels.digit_matmul import K_ALIGN
 
@@ -221,13 +226,14 @@ def fused_two_sided(Hdw, HupT, V, nslices: int, bits: int = _BITS):
 
     Hdw [ddw, ddw] f64; HupT [dup, dup] f64 (already transposed — the
     matvec applies V @ HupT); V [ddw, dup] f64."""
-    lam = fused_lambda(Hdw, HupT, V)
-    Vl = lam * V
-    L = torch.cat([Hdw, Vl], dim=1)                 # [ddw, ddw + dup]
-    R = torch.cat([Vl, HupT], dim=0)                # [ddw + dup, dup]
+    with timer.span("ozaki.split", V):
+        lam = fused_lambda(Hdw, HupT, V)
+        Vl = lam * V
+        L = torch.cat([Hdw, Vl], dim=1)             # [ddw, ddw + dup]
+        R = torch.cat([Vl, HupT], dim=0)            # [ddw + dup, dup]
+        ad, sa = _left_digits(L, nslices, bits)
+        bd, sb = _right_digits(R, nslices, bits)
     k = L.shape[1]
-    ad, sa = _left_digits(L, nslices, bits)
-    bd, sb = _right_digits(R, nslices, bits)
     pairwise, kchunk = _schedule(k, nslices, bits)
     return digit_matmul(ad, bd, (sa / lam).reshape(-1), sb.reshape(-1), bits,
                         pairwise, kchunk, k=k)
@@ -254,7 +260,8 @@ def sliced_matmul(Ad, sa, B, nslices: int, bits: int = _BITS):
     """(pre-sliced A) @ B: Ad [P, m, Kp] digits, sa [m, 1] row scales;
     B [k, n] is sliced per column on the fly."""
     k = B.shape[0]
-    bd, sb = _right_digits(B, nslices, bits)
+    with timer.span("ozaki.split", B):
+        bd, sb = _right_digits(B, nslices, bits)
     pairwise, kchunk = _schedule(k, nslices, bits)
     return digit_matmul(Ad, bd, sa.reshape(-1), sb.reshape(-1), bits,
                         pairwise, kchunk, k=k)
@@ -282,7 +289,8 @@ def right_sliced_matmul(B, Ad, sa, nslices: int, bits: int = _BITS):
     B [m, k] is sliced per row on the fly. Scaled row first, then column,
     as the reference multiplies (· sb · sa)."""
     k = B.shape[1]
-    bdig, sb = _left_digits(B, nslices, bits)
+    with timer.span("ozaki.split", B):
+        bdig, sb = _left_digits(B, nslices, bits)
     pairwise, kchunk = _schedule(k, nslices, bits)
     return digit_matmul(bdig, Ad, sb.reshape(-1), sa.reshape(-1), bits,
                         pairwise, kchunk, k=k)
