@@ -177,7 +177,13 @@ classes, 252 -> 210 and 210 -> 252, on both sides; and at phase 14's
 mix-term classes, a 924x924 hop operator
 c+_a c_b against a 924x4096 panel and against the 924x924 panel of one
 Krylov vector of the (6,6) sector (the shape of every product phase
-14(c)'s Lanczos steps make), on both sides.
+14(c)'s Lanczos steps make), on both sides. At the 924 class, the superc
+252 / 210 classes and the 3432 class it holds the digit-extraction
+kernel too (``kernels.digit_split``): both operands of each case split
+as left (per-row scales) and right (per-column scales), bitwise against
+the plain version, with the kernel's ms beside its byte bound and the
+plain version's ms; phase 17(c) checks its launches, two per matvec and
+two for the operator's constant blocks under ozaki5x7, none under native.
 
 Every path runs with the launch counts reset just before it and read just
 after it. ``--phases 10,12`` (for development; any of 10-17) runs phase
@@ -1146,6 +1152,65 @@ def digit_matmul_cases(device, cases, reps: int = 10, timed: bool = True):
             bad.append(f"{label}: kernel vs f64 product relative "
                        f"{rel_exact:.3e} > {TOL_EXACT_REL:g}")
         out.append(rec)
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return out
+
+
+# phase-2 cases whose operands phase 2 also splits with digit_split (both
+# orientations): the 924 class, the superc 252 / 210 classes, the Nbath=13
+# 3432 class
+SPLIT_LABELS = ("dw K=924", "up K=924", "superc dw K=252", "superc up K=252",
+                "superc pair c_up 252->210 (V @ C^T)",
+                "superc pair cdg_up 210->252 (V @ C^T)",
+                "bench dw K=3432", "bench up K=3432")
+
+
+def digit_split_bound_ms(P, rows, k):
+    """The f64 operand read once, the P int8 planes (Kp columns) and the
+    f64 scales written once, over the memory rate."""
+    from dmft_ed_tpu_torch.ozaki import kpad
+    return 1e3 * (8 * rows * k + P * rows * kpad(k) + 8 * rows) \
+        / HBM_BYTES_PER_S
+
+
+def digit_split_cases(device, cases, reps: int = 20):
+    """The split kernel against its plain version, bitwise (digits, pad and
+    scales), for both operands of every phase-2 case in SPLIT_LABELS: the
+    left operand A [m, k] scaled per row and the right operand B [k, n]
+    scaled per column; the kernel's ms, the plain version's and the byte
+    bound. Returns one record per split; raises, after every split has
+    run, if any disagreed."""
+    import torch
+    from dmft_ed_tpu_torch.kernels import digit_split, digit_split_plain
+    out, bad = [], []
+    for label, A, Bm, P, B, _, _ in cases:
+        if label not in SPLIT_LABELS:
+            continue
+        for side, X, right in (("left", A, False), ("right", Bm, True)):
+            n0 = digit_split.launches
+            got = digit_split(X, P, B, right)
+            launched = digit_split.launches - n0
+            ref = digit_split_plain(X, P, B, right)
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            bitwise = bool(torch.equal(got[0], ref[0])
+                           and torch.equal(got[1], ref[1]))
+            rows, k = (X.shape[1], X.shape[0]) if right else X.shape
+            rec = dict(label=f"{label} {side}", shape=tuple(X.shape), P=P,
+                       B=B, bitwise=bitwise, launches=launched,
+                       bound_ms=digit_split_bound_ms(P, rows, k))
+            if device.type == "cuda":
+                rec["ms"] = time_ms(lambda: digit_split(X, P, B, right), reps)
+                rec["plain_ms"] = time_ms(
+                    lambda: digit_split_plain(X, P, B, right), reps // 4)
+                rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+            print("digit_split", json.dumps(rec))
+            if not bitwise:
+                bad.append(f"{label} {side}: split differs from plain")
+            if launched != (1 if device.type == "cuda" else 0):
+                bad.append(f"{label} {side}: {launched} launches")
+            out.append(rec)
     if bad:
         raise AssertionError("; ".join(bad))
     return out
@@ -3190,6 +3255,15 @@ def entry_points(device):
               f"{g['peak_gib']:.3f} GiB")
         if not (abs(g["egs"] - BENCH13_JAX["egs"]) <= tol and g["finite"]):
             bad.append(f"(c) {prec} egs differs from the JAX package's")
+        # the vector operand's two splits per matvec, and the set-up's two
+        # constant blocks (H_dw left, H_up^T right) under ozaki5x7
+        want = 2 * g["matvecs"] + 2 if prec == "ozaki5x7" else 0
+        n_split = out[f"ground_state_nbath13_{prec}"]["digit_split"]
+        print(f"phase 17(c) {prec}: digit_split launches {n_split} "
+              f"(expected {want})")
+        if n_split != want:
+            bad.append(f"(c) {prec}: {n_split} digit_split launches, not "
+                       f"{want}")
     d_gs = abs(gs["native"]["egs"] - gs["ozaki5x7"]["egs"])
     print(f"phase 17(c) native vs ozaki5x7 egs |d|={d_gs:.3e} (bound "
           f"{TOL_P17_EGS_OZAKI:g})")
@@ -3286,7 +3360,9 @@ def dev_phases(device, want, work):
     if want(16):
         mesh_phases(device, work)
     if want(17):
-        digit_matmul_cases(device, bench_kernel_cases(device))
+        p17 = bench_kernel_cases(device)
+        digit_matmul_cases(device, p17)
+        digit_split_cases(device, p17)
         entry_points(device)
     print("chip_smoke: development run of some phases only; no result")
     return 0
@@ -3331,10 +3407,12 @@ def main() -> int:
             if only != "all":
                 return dev_phases(device, want, work)
             # ---- phase 2: kernel vs plain at the main path's shapes
-            cases = digit_matmul_cases(
-                device, kernel_cases(device, MAIN_CFG)
-                + superc_kernel_cases(device) + hund_kernel_cases(device)
-                + bench_kernel_cases(device))
+            p2 = (kernel_cases(device, MAIN_CFG)
+                  + superc_kernel_cases(device) + hund_kernel_cases(device)
+                  + bench_kernel_cases(device))
+            cases = digit_matmul_cases(device, p2)
+            splits = digit_split_cases(device, p2)
+            del p2
             # ---- phase 3: the first slice's path
             r, obs, launches = main_path(device, MAIN_CFG, MAIN_RUN,
                                          hm_bethe)
@@ -3419,6 +3497,28 @@ def main() -> int:
                          or c["label"].startswith(("fused", "superc",
                                                    "mix", "rows", "bench"))},
     }]
+    main_split = next(c for c in splits
+                      if c["label"] == "bench up K=3432 left")
+    kernels.append({
+        "name": "digit_split",
+        "route": "cuda",
+        "source": "dmft_ed_tpu_torch/csrc/digit_split.cu",
+        "replaces": None,
+        "launches": launches["digit_split"],
+        "ms": main_split["ms"],
+        "plain_ms": main_split["plain_ms"],
+        "bound_ms": main_split["bound_ms"],
+        "bound_by": "bytes",
+        "parity": "bitwise",
+        "shape": "x".join(str(x) for x in main_split["shape"])
+        + f" P={main_split['P']} B={main_split['B']}",
+        "launches_per_path": {
+            "lanczos_loop_ozaki5x7": launches["digit_split"],
+            "canonical_loop_native": launches_c["digit_split"],
+            **{k: v["digit_split"] for k, v in launches_17.items()
+               if "digit_split" in v}},
+        "ms_per_class": {c["label"]: c["ms"] for c in splits},
+    })
     print(f"total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -6,8 +6,9 @@ counts its launches in ``<wrapper>.launches``.
 """
 
 from .digit_matmul import digit_matmul, digit_matmul_plain
+from .digit_split import digit_split, digit_split_plain
 
-KERNELS = {"digit_matmul": digit_matmul}
+KERNELS = {"digit_matmul": digit_matmul, "digit_split": digit_split}
 
 
 def reset_launches() -> None:
@@ -15,5 +16,5 @@ def reset_launches() -> None:
         fn.launches = 0
 
 
-__all__ = ["digit_matmul", "digit_matmul_plain", "KERNELS",
-           "reset_launches"]
+__all__ = ["digit_matmul", "digit_matmul_plain", "digit_split",
+           "digit_split_plain", "KERNELS", "reset_launches"]

@@ -13,7 +13,7 @@ int32 digit products (see ``csrc/digit_matmul.cu`` for the schedule and
 epilogue, which both versions here follow step for step).
 
 Layout: both stacks K-major, ad [P, M, Kp] and bd [P, N, Kp], with the
-contraction axis padded to Kp, a multiple of 16 (``ozaki.kpad``); ``k`` is
+contraction axis padded to Kp, a multiple of 16 (``kpad``); ``k`` is
 the true contraction length. Both versions, on both schedules, contract
 over the first k columns alone (the pad's contents never enter), and the
 pairwise chunks fall on k.
@@ -42,6 +42,12 @@ _NAME = "digit_matmul"
 K_ALIGN = 16          # Kp must be a multiple of this (16-byte TMA strides)
 TILE_M = 128          # CTA tile rows of the tensor-core route (dp4a: 64)
 _GRID_Y_MAX = 65535
+
+
+def kpad(k: int) -> int:
+    """Contraction length of the K-major digit stacks: k rounded up to a
+    multiple of K_ALIGN, at least K_ALIGN."""
+    return -(-max(k, 1) // K_ALIGN) * K_ALIGN
 
 
 def _lib():
@@ -113,7 +119,7 @@ def _check(ad, bd, rs, cs, bits, k, kchunk):
     K = Kp if k is None else int(k)
     if Kp % K_ALIGN or Kp == 0:
         raise ValueError(f"digit_matmul: Kp={Kp} is not a positive multiple "
-                         f"of {K_ALIGN} (pad with ozaki.kpad)")
+                         f"of {K_ALIGN} (pad with kpad)")
     if not 0 <= K <= Kp:
         raise ValueError(f"digit_matmul: k={K} outside 0..Kp={Kp}")
     for t, dt, shape, nm in ((ad, torch.int8, None, "ad"),

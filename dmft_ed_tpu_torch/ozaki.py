@@ -12,9 +12,11 @@ TwoSum f32 pair; that engine is the CUDA kernel ``kernels.digit_matmul``
 (plain PyTorch on CPU tensors). "ozaki6" = (P, B) = (6, 6), "ozaki5x7" =
 (5, 7): both ~1e-10 relative, 21 vs 15 digit-pair products.
 
-Digit extraction is elementwise torch with f32 bit fields
-(``.view(torch.int32)``), bit-identical to the reference: native f32
-arithmetic, exact casts, IEEE exponent fields, round-half-to-even.
+Digit extraction is ``kernels.digit_split``: a CUDA kernel on a card, one
+pass over the operand; on the CPU its plain version ``_digits_list``,
+elementwise torch with f32 bit fields (``.view(torch.int32)``). Both are
+bit-identical to the reference: native f32 arithmetic, exact casts, IEEE
+exponent fields, round-half-to-even.
 
 Schedules (``_schedule``): the concatenated one sums each group
 Σ_{p+q=s} A_p·B_q in int32 while P·k·D² < 2^31 (``_cat_safe``); past that
@@ -26,8 +28,7 @@ So both stacks here are K-major with the contraction axis zero-padded to
 Kp = ``kpad(k)``, a multiple of 16: [P, m, Kp] (left) and [P, n, Kp]
 (right, the transpose of the reference's [P, k, n]), digit 0 first. The
 zero columns add exact zeros to every product. The right stack is written
-transposed straight into its buffer, digit by digit (one int8 pass per
-digit, no extra pass over the f64 operand). ``slice_digits`` keeps the
+transposed straight into its buffer. ``slice_digits`` keeps the
 reference's layout.
 
 Under a running ``torch.profiler`` (timer.py) the products with a per-call
@@ -40,17 +41,11 @@ from __future__ import annotations
 import torch
 
 from . import timer
-from .kernels import digit_matmul
-from .kernels.digit_matmul import K_ALIGN
+from .kernels import digit_matmul, digit_split
+from .kernels.digit_matmul import kpad  # noqa: F401  (re-exported)
+from .kernels.digit_split import _BITS, _digits_list
 
-_BITS = 6              # default digit width ("ozakiN" == N slices of 6 bits)
 _INT32_LIM = 2.0 ** 31
-
-
-def kpad(k: int) -> int:
-    """Contraction length of the K-major digit stacks: k rounded up to a
-    multiple of K_ALIGN, at least K_ALIGN."""
-    return -(-max(k, 1) // K_ALIGN) * K_ALIGN
 
 
 def parse_precision(s: str):
@@ -66,63 +61,6 @@ def parse_precision(s: str):
     if not (1 <= bits <= 7):
         raise ValueError(f"ozaki digit width must be 1..7, got {bits} ({s})")
     return nslices, bits
-
-
-def _pow2_f32(e):
-    """2^e as exact f32 from the exponent bit field (e int32, clipped to
-    the normal range)."""
-    eb = torch.clamp(e + 127, 1, 254).to(torch.int32) << 23
-    return eb.view(torch.float32)
-
-
-def _ceil_log2_f32(m):
-    """ceil(log2(m)) for m >= 0 f32, exactly, from the IEEE bit fields."""
-    b = m.view(torch.int32)
-    expo = ((b >> 23) & 0xFF) - 127
-    frac = b & 0x7FFFFF
-    return expo + (frac != 0).to(torch.int32)
-
-
-def _two_sum_f32(a, b):
-    """Knuth TwoSum: s + err == a + b exactly."""
-    s = a + b
-    bp = s - a
-    err = (a - (s - bp)) + (b - bp)
-    return s, err
-
-
-def _digits_list(A, nslices: int, scale_axis, bits: int = _BITS, out=None):
-    """Digit slices of A (list of int8 tensors in A's layout) and the f64
-    power-of-two scales, constant along `scale_axis` (0: per-column
-    scales, 1: per-row scales, None: one scale). With `out` (an int8
-    [nslices, ...] view in A's layout) digit p is written into out[p]
-    instead, and the list is empty."""
-    a32 = A.to(torch.float32)
-    if scale_axis is None:
-        m = a32.abs().amax().reshape((1,) * A.dim())
-    else:
-        m = a32.abs().amax(dim=scale_axis, keepdim=True)
-    E = _ceil_log2_f32(m) + 1
-    inv = _pow2_f32(-E)
-    u1 = a32 * inv
-    S64 = _pow2_f32(E).to(torch.float64)
-    u2 = (A - u1.to(torch.float64) * S64).to(torch.float32) * inv
-    stepB = torch.tensor(2.0 ** bits, dtype=torch.float32, device=A.device)
-    t, c = u1, u2
-    digits = []
-    for p in range(nslices):
-        y = t * stepB
-        cB = c * stepB
-        s, e2 = _two_sum_f32(y, cB)
-        q = torch.round(s)
-        d = s - q
-        t, c = _two_sum_f32(d, e2)
-        q = torch.clamp(q, -127.0, 127.0)
-        if out is None:
-            digits.append(q.to(torch.int8))
-        else:
-            out[p].copy_(q)          # exact: q is an integer in [-127, 127]
-    return digits, S64
 
 
 def slice_digits(A, nslices: int, axis: int, bits: int = _BITS):
@@ -151,34 +89,16 @@ def _schedule(k: int, nslices: int, bits: int):
     return True, min(max(k, 1), kmax)
 
 
-def _kmajor_buffer(nslices: int, rows: int, k: int, device):
-    """[P, rows, kpad(k)] int8 with the pad columns zeroed."""
-    buf = torch.empty((nslices, rows, kpad(k)), dtype=torch.int8,
-                      device=device)
-    if buf.shape[2] > k:
-        buf[:, :, k:].zero_()
-    return buf
-
-
 def _right_digits(B, nslices: int, bits: int):
     """Right operand B [k, n]: (digits [P, n, Kp] K-major, zero past k;
-    column scales [1, n]). Digit p of B is written transposed into
-    buf[p, :, :k]."""
-    k, n = B.shape
-    buf = _kmajor_buffer(nslices, n, k, B.device)
-    _, sb = _digits_list(B, nslices, scale_axis=0, bits=bits,
-                         out=buf[:, :, :k].transpose(1, 2))
-    return buf, sb
+    column scales [1, n]), digit p of B transposed into buf[p, :, :k]."""
+    return digit_split(B, nslices, bits, right=True)
 
 
 def _left_digits(A, nslices: int, bits: int):
     """Left operand A [m, k]: (digits [P, m, Kp] K-major, zero past k;
     row scales [m, 1])."""
-    m, k = A.shape
-    buf = _kmajor_buffer(nslices, m, k, A.device)
-    _, sa = _digits_list(A, nslices, scale_axis=1, bits=bits,
-                         out=buf[:, :, :k])
-    return buf, sa
+    return digit_split(A, nslices, bits)
 
 
 def matmul(A, B, nslices: int = 6, bits: int = _BITS):

@@ -98,7 +98,8 @@ def test_bench_recurrence_matches_jax(jax_runs, name, dtype, prec, ref, tol):
     r = bench.run(NBATH, dtype, NITER, 1, prec, "cpu")
     assert (r["dim"], r["nnz"]) == (jax_runs[ref]["dim"],
                                     jax_runs[ref]["nnz"]) == (4900, 44100)
-    assert r["finite"] and r["launches"] == {"digit_matmul": 0}
+    assert r["finite"] and r["launches"] == {"digit_matmul": 0,
+                                           "digit_split": 0}
     assert r["lanczos_iters_per_s"] > 0 and r["peak_gib"] is None
     assert _diff(r, jax_runs[ref]) <= tol
 
