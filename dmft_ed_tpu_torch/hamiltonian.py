@@ -40,7 +40,7 @@ import torch
 from .config import EDConfig
 from .sectors import Sector, SectorTable, bath_stride
 from .bath import Bath
-from . import fock
+from . import fock, timer
 
 
 class SpinCOO(NamedTuple):
@@ -889,7 +889,11 @@ def apply_op(spec, arrays, V, gather=None):
     gather: for a row-sharded local operator (parallel.hxv), the map from a
     block's local rows to all of them; every dw-side product then reads
     the gathered block (one gather per block that a dw side reads), the
-    diagonal and the up side the local rows."""
+    diagonal and the up side the local rows.
+
+    Under a running profiler (timer.py) an operator with mix terms records
+    one ``hamiltonian.mix`` span around them; an operator without any, or
+    a matvec replayed from a CUDA graph (lanczos._Graphed), records none."""
     blocks, diag_idx, hup_spec, hdw_spec, mix_spec, _ = spec
     full = {}
 
@@ -916,20 +920,23 @@ def apply_op(spec, arrays, V, gather=None):
             r = _app(hdw_spec[bi], arrays, rows_of(bi), "left", ddw)
             y = y + r
         Y.append(y)
-    for (src, dst, up, dw, cidx) in mix_spec:
-        v = V[src] if dw is None and (up is None or up[0] != "bmix") \
-            else rows_of(src)
-        if up is not None and up[0] == "bmix":
-            Y[dst] = Y[dst] + _mix_batched(arrays[up[1]], arrays[up[2]],
-                                           arrays[cidx], v)
-            continue
-        if up is not None:
-            v = _app(up, arrays, v, "right", blocks[dst][1])
-            if v is None:
+    if not mix_spec:
+        return tuple(Y)
+    with timer.span("hamiltonian.mix", V[0]):
+        for (src, dst, up, dw, cidx) in mix_spec:
+            v = V[src] if dw is None and (up is None or up[0] != "bmix") \
+                else rows_of(src)
+            if up is not None and up[0] == "bmix":
+                Y[dst] = Y[dst] + _mix_batched(arrays[up[1]], arrays[up[2]],
+                                               arrays[cidx], v)
                 continue
-        if dw is not None:
-            v = _app(dw, arrays, v, "left", blocks[dst][0])
-            if v is None:
-                continue
-        Y[dst] = Y[dst] + arrays[cidx] * v
+            if up is not None:
+                v = _app(up, arrays, v, "right", blocks[dst][1])
+                if v is None:
+                    continue
+            if dw is not None:
+                v = _app(dw, arrays, v, "left", blocks[dst][0])
+                if v is None:
+                    continue
+            Y[dst] = Y[dst] + arrays[cidx] * v
     return tuple(Y)
