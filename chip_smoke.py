@@ -185,8 +185,23 @@ the plain version, with the kernel's ms beside its byte bound and the
 plain version's ms; phase 17(c) checks its launches, two per matvec and
 two for the operator's constant blocks under ozaki5x7, none under native.
 
+Phase 18: the mix terms' signed-gather kernel (``kernels.mix_gather``,
+``csrc/mix_gather.cu``) on the Hund cell's operator
+(``benchmark/configs/hund2_nb12.json``: the (7,7) sector, one 3432x3432
+block, four Kanamori terms in one "pmix" entry), float64 and float32:
+bitwise against its plain version on the same tables and apply_op against
+the dense "bmix" encoding of the same operator; the kernel's ms beside its
+byte bound (the distinct entries of V read and of Y written, 8 bytes
+each), the plain version's ms and the dense batched products'
+(``hamiltonian._mix_batched``, the library yardstick); then the
+benchmark cell's thick restart from one start vector in float64, one
+launch per matvec, which gives the kernels line its ``launches``. Its
+``launches_per_path`` holds every path's count (a CUDA graph's replays
+count the launches their capture recorded); every path of ``MIX_PATHS``
+launches the kernel, and no ozaki5x7 or Nbath=13 path does.
+
 Every path runs with the launch counts reset just before it and read just
-after it. ``--phases 10,12`` (for development; any of 10-17) runs phase
+after it. ``--phases 10,12`` (for development; any of 10-18) runs phase
 1 and the listed phases only, and prints no result line (``--phases 17``
 also runs phase 2's phase-17 classes).
 
@@ -211,6 +226,13 @@ sys.path.insert(0, REPO)
 # Published dense peaks of one H100 SXM (NVIDIA data sheet), for bound_ms.
 INT8_OPS_PER_S = 1.979e15
 HBM_BYTES_PER_S = 3.35e12
+# the kernels every ozaki5x7 path launches (mix_gather runs only where an
+# operator has mix terms of real vectors outside the Ozaki route)
+OZAKI_KERNELS = ("digit_matmul", "digit_split")
+# the native paths whose operators have real mix terms (the superc pairing,
+# the Hund exchange and pair hopping), each of which launches mix_gather
+MIX_PATHS = ("ahm_loop_native", "nbands_nbath10_native",
+             "stack_nbath9_native", "hund_gs_nbath12_native")
 
 # Phase-2 tolerances: kernel vs plain bitwise (same schedule and epilogue;
 # the int32 sums are exact in any order), and vs the f64 product the
@@ -1399,8 +1421,8 @@ def check_main_path(r, obs, launches):
         if not np.all((docc > 0.0) & (docc < 0.25)):
             raise AssertionError(f"main path: iteration {i + 1} docc {docc} "
                                  "outside (0, 0.25)")
-    for name, n in launches.items():
-        if n <= 0:
+    for name in OZAKI_KERNELS:
+        if launches[name] <= 0:
             raise AssertionError(f"main path never launched kernel {name}")
 
 
@@ -1526,8 +1548,8 @@ def arpack_solve(device, bath, egs_lanczos):
     if not all(np.all(np.isfinite(x)) for r in res.values()
                for x in r.chi_spin):
         bad.append("non-finite chi_spin")
-    for name, n in launches["ozaki5x7"].items():
-        if n <= 0:
+    for name in OZAKI_KERNELS:
+        if launches["ozaki5x7"][name] <= 0:
             bad.append(f"the ozaki5x7 arpack solve never launched {name}")
     if bad:
         raise AssertionError("; ".join(bad))
@@ -1742,8 +1764,8 @@ def operator_native_vs_ozaki(device, cfg, ham, label, nkry, seed):
         bad.append("H v differs")
     if not d_kry <= TOL_KRYLOV or nn < nkry or no < nkry:
         bad.append("Lanczos coefficients differ")
-    for name, n in launches["ozaki5x7"].items():
-        if n <= 0:
+    for name in OZAKI_KERNELS:
+        if launches["ozaki5x7"][name] <= 0:
             bad.append(f"the ozaki5x7 operator never launched {name}")
     if not samples:
         bad.append("no kernel call was held against the plain version")
@@ -3024,7 +3046,7 @@ def nbands_full(device):
     print(f"hm_bethe_nbands Nbath=10 hybrid Hund: 1 iteration in {dt:.3f} s"
           f"\n  stages {_stages(solver.timers)}\n  largest sector "
           f"{sec.qn} dim {sec.dim}: {mv.get(sec.dim, 0)} matvecs, {nmix} "
-          f"mix entry (bmix), {calls} torch calls, {ms:.3f} ms eager and "
+          f"mix entry (pmix), {calls} torch calls, {ms:.3f} ms eager and "
           f"{ms_g:.3f} ms graphed per matvec; {sum(mv.values())} matvecs "
           f"in all; peak device memory {peak:.3f} GiB; launches={launches}"
           f"\n  dens={r.dens.tolist()} docc={r.docc.tolist()} "
@@ -3067,6 +3089,133 @@ def hund_operator(device, bath0):
                              "4 (spin exchange and pair hopping)")
     return operator_native_vs_ozaki(device, cfg, ham, "Hund operator",
                                     HUND_KRYLOV, seed=140)
+
+
+def mix_gather_phase(device, reps: int = 50):
+    """Phase 18: the "pmix" kernel on the Hund cell's (7,7) operator in
+    float64 and float32, against its plain version and the dense "bmix"
+    path (bitwise), timed beside its byte bound and the dense batched
+    products; then, in float64, the benchmark cell's thick restart from
+    one start vector with the launch counts reset just before it (one
+    launch per matvec). Returns (one record per dtype, the restart's
+    launches per kernel); raises, after both dtypes have run, if any
+    disagreed."""
+    import numpy as np
+    import torch
+    from dmft_ed_tpu_torch import hamiltonian as tham
+    from dmft_ed_tpu_torch.bath import Bath
+    from dmft_ed_tpu_torch.config import EDConfig
+    from dmft_ed_tpu_torch.diag import _ncv
+    from dmft_ed_tpu_torch.kernels import (launch_counts, mix_gather,
+                                           mix_gather_plain, reset_launches)
+    from dmft_ed_tpu_torch.lanczos import eigs_lanczos_op
+    from dmft_ed_tpu_torch.sectors import sector_table
+    with open(os.path.join(REPO, "benchmark", "configs",
+                           "hund2_nb12.json")) as fh:
+        c = json.load(fh)
+    out, bad = [], []
+    for dtype in ("float64", "float32"):
+        cfg = EDConfig(norb=2, nspin=1, bath_type=c["bath_type"],
+                       nbath=c["nbath"], uloc=tuple(c["uloc"]),
+                       ust=c["ust"], jh=c["jh"], jx=c["jx"], jp=c["jp"],
+                       beta=c["beta"], xmu=c["xmu"], dtype=dtype).validate()
+        bath = Bath(cfg)
+        bath.e[0, :, :] = np.asarray(c["bath_e"])
+        bath.v[0, :, :] = np.asarray(c["bath_v"])
+        sec = sector_table(cfg).get(*c["sector"])
+        ham = tham.build_sector_hamiltonian(cfg, sec, bath,
+                                            np.zeros((1, 1, 2, 2)))
+        spec, arrays, blocks = tham.make_matvec_op(ham, cfg, device)
+        ent = spec[4][0][2]
+        if [m[2][0] for m in spec[4]] != ["pmix"]:
+            raise AssertionError(f"phase 18: mix entries "
+                                 f"{[m[2][0] for m in spec[4]]}")
+        tables = [arrays[i] for i in ent[3:8]]
+        perm = tham._signed_perm
+        tham._signed_perm = lambda coo: False
+        try:
+            dspec, darrays, _ = tham.make_matvec_op(ham, cfg, device)
+        finally:
+            tham._signed_perm = perm
+        dent = dspec[4][0]
+        g = torch.Generator(device=device).manual_seed(18)
+        vt = getattr(torch, dtype)
+        x = torch.randn(sec.dim, dtype=vt, device=device, generator=g)
+        v = x.reshape(blocks[0])
+        y0 = torch.randn(blocks[0], dtype=vt, device=device, generator=g)
+        n0 = mix_gather.launches
+        got = mix_gather(v, y0.clone(), *tables)
+        launched = mix_gather.launches - n0
+        ref = mix_gather_plain(v, y0.clone(), *tables)
+        Vb = tham.unflatten_blocks(x, blocks)
+        same_dense = torch.equal(
+            tham.apply_op(spec, arrays, Vb)[0],
+            tham.apply_op(dspec, darrays, Vb)[0])
+        # least bytes: the distinct entries of V read and of Y written
+        ds, us = (t.cpu().numpy() for t in (tables[0], tables[2]))
+        ddw, dup = blocks[0]
+        seen = 0
+        for k in (0, 1):
+            hit = np.zeros(ddw * dup, dtype=bool)
+            for l in range(ds.shape[0]):
+                r = np.flatnonzero(ds[l] >= 0)
+                cc = np.flatnonzero(us[l] >= 0)
+                if k == 0:
+                    r, cc = ds[l][r], us[l][cc]
+                hit[(r[:, None] * dup + cc[None, :]).ravel()] = True
+            seen += int(hit.sum())
+        nbytes = seen * x.element_size()
+        y = y0.clone()
+        rec = dict(dtype=dtype, shape=list(blocks[0]), terms=ent[1],
+                   rows=ent[2], bitwise_plain=bool(torch.equal(got, ref)),
+                   bitwise_dense=bool(same_dense), launches=launched,
+                   least_bytes=nbytes,
+                   bound_ms=1e3 * nbytes / HBM_BYTES_PER_S,
+                   ms=time_ms(lambda: mix_gather(v, y, *tables), reps),
+                   plain_ms=time_ms(lambda: mix_gather_plain(v, y, *tables),
+                                    5),
+                   dense_ms=time_ms(lambda: tham._mix_batched(
+                       darrays[dent[2][1]], darrays[dent[2][2]],
+                       darrays[dent[4]], v), 10))
+        rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+        print("phase 18 mix_gather", json.dumps(rec))
+        if not (rec["bitwise_plain"] and rec["bitwise_dense"]):
+            bad.append(f"{dtype}: kernel {rec['bitwise_plain']}, dense "
+                       f"{rec['bitwise_dense']}")
+        if launched != 1:
+            bad.append(f"{dtype}: {launched} launches")
+        out.append(rec)
+        del darrays
+        if dtype == "float64":
+            v0 = torch.randn(sec.dim, dtype=vt, device=device, generator=g)
+            v0 = v0 / torch.linalg.vector_norm(v0)
+            reset_launches()
+            t0 = time.time()
+            egs, _, niter = eigs_lanczos_op(
+                spec, blocks, arrays, v0, 1, _ncv(cfg, sec.dim, 1),
+                maxiter=min(sec.dim, cfg.lanc_niter), tol=cfg.lanc_tolerance)
+            torch.cuda.synchronize()
+            dt = time.time() - t0
+            gs = launch_counts()
+            print(f"phase 18 thick restart float64: egs={float(egs[0])!r} "
+                  f"{int(niter)} matvecs in {dt:.3f} s, launches={gs}")
+            if gs["mix_gather"] != int(niter):
+                bad.append(f"thick restart: {gs['mix_gather']} launches "
+                           f"for {int(niter)} matvecs")
+        del arrays, tables
+    if bad:
+        raise AssertionError("phase 18: " + "; ".join(bad))
+    return out, gs
+
+
+def check_mix_gather_paths(per_path):
+    """mix_gather launches on every path of MIX_PATHS, and on no ozaki5x7
+    path (its mix terms take ozr/ozl) or Nbath=13 path (no mix terms)."""
+    bad = [f"{k} launched none" for k in MIX_PATHS if not per_path[k] > 0]
+    bad += [f"{k} launched {n}" for k, n in per_path.items()
+            if ("ozaki5x7" in k or "nbath13" in k) and n]
+    if bad:
+        raise AssertionError("mix_gather launches: " + "; ".join(bad))
 
 
 def hund_restart_ozaki(device, bath0, egs_native):
@@ -3114,8 +3263,8 @@ def hund_restart_ozaki(device, bath0, egs_native):
         bad.append(f"not one serial restart: {lines}")
     if not d_egs <= TOL_EGS:
         bad.append("egs differs from the native solve's")
-    for name, n in launches.items():
-        if n <= 0:
+    for name in OZAKI_KERNELS:
+        if launches[name] <= 0:
             bad.append(f"never launched {name}")
     if bad:
         raise AssertionError("Hund thick restart ozaki5x7: "
@@ -3364,6 +3513,8 @@ def dev_phases(device, want, work):
         digit_matmul_cases(device, p17)
         digit_split_cases(device, p17)
         entry_points(device)
+    if want(18):
+        mix_gather_phase(device)
     print("chip_smoke: development run of some phases only; no result")
     return 0
 
@@ -3458,6 +3609,8 @@ def main() -> int:
                                       sectors7)
             # ---- phase 17: the benchmark entry points at Nbath=13
             launches_17 = entry_points(device)
+            # ---- phase 18: the mix terms' gather kernel, Hund (7,7)
+            gathers, launches_18 = mix_gather_phase(device)
         finally:
             os.chdir(REPO)
 
@@ -3518,6 +3671,38 @@ def main() -> int:
             **{k: v["digit_split"] for k, v in launches_17.items()
                if "digit_split" in v}},
         "ms_per_class": {c["label"]: c["ms"] for c in splits},
+    })
+    main_gather = gathers[0]
+    gather_paths = {
+        "lanczos_loop_ozaki5x7": launches["mix_gather"],
+        "canonical_loop_native": launches_c["mix_gather"],
+        "arpack_solve_ozaki5x7": launches_a["mix_gather"],
+        "ahm_loop_native": launches_s["mix_gather"],
+        "superc_operator_ozaki5x7": launches_o["mix_gather"],
+        "soc_loop_native": launches_soc["mix_gather"],
+        "bhz_loop_native": launches_bhz["mix_gather"],
+        "spin_orbit_impurity_native": launches_jz["mix_gather"],
+        **{k: v["mix_gather"] for d in (launches_13, launches_14, launches_15,
+                                        launches_16, launches_17)
+           for k, v in d.items() if "mix_gather" in v},
+        "hund_gs_nbath12_native": launches_18["mix_gather"]}
+    check_mix_gather_paths(gather_paths)
+    kernels.append({
+        "name": "mix_gather",
+        "route": "cuda",
+        "source": "dmft_ed_tpu_torch/csrc/mix_gather.cu",
+        "replaces": None,
+        "launches": launches_18["mix_gather"],
+        "ms": main_gather["ms"],
+        "plain_ms": main_gather["plain_ms"],
+        "bound_ms": main_gather["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": main_gather["dense_ms"],
+        "parity": "bitwise",
+        "shape": "x".join(str(x) for x in main_gather["shape"])
+        + f" L={main_gather['terms']}",
+        "launches_per_path": gather_paths,
+        "ms_per_class": {g["dtype"]: g["ms"] for g in gathers},
     })
     print(f"total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -585,7 +585,10 @@ def np_unflatten_blocks(x: np.ndarray, sector: Sector):
 # digits, left/right operand, through kernels.digit_matmul), "ozf" (both
 # spin parts as raw f64 matrices for ozaki.fused_two_sided, opt-in), "coo"
 # (gather + index_add_), "none" (empty operator); a mix entry of kind
-# "bmix" holds every dense mix term of one (src, dst) block pair, stacked.
+# "pmix" holds every mix term of one (src, dst) block pair whose spin parts
+# are signed partial permutations as per-term gather tables (real vectors,
+# no Ozaki; kernels.mix_gather), one of kind "bmix" every other dense mix
+# term of a pair, stacked.
 # A complex vector against a real dense or Ozaki operator goes through as
 # its real and imaginary parts (``_real_linear``).
 
@@ -654,6 +657,36 @@ def _ozaki_right(digits, scales, v, nsl, bits):
     m, k = v.shape[-2:]
     R = right_sliced_matmul(v.reshape(-1, k), digits, scales, nsl, bits)
     return R.reshape(v.shape[:-1] + (R.shape[-1],))
+
+
+def _signed_perm(coo: SpinCOO) -> bool:
+    """True when `coo` is a signed partial permutation: every value ±1 and
+    at most one nonzero in every row and in every column (a hop operator
+    c†_a c_b, or c_l, c†_l, on one spin's basis)."""
+    v = coo.vals
+    return bool(not np.any(np.imag(v)) and np.all(np.abs(np.real(v)) == 1)
+                and np.unique(coo.rows).size == coo.rows.size
+                and np.unique(coo.cols).size == coo.cols.size)
+
+
+def _perm_tables(terms, side: str, n_dst: int, n_src: int):
+    """A "pmix" entry's tables of one side over `terms`, each a signed
+    partial permutation there (or None, the identity): the source index of
+    every destination index, or -1 (int32 [L, n_dst]), and its sign, times
+    the term's coefficient on the dw side (exact) ([L, n_dst] float64)."""
+    src = np.full((len(terms), n_dst), -1, dtype=np.int32)
+    val = np.zeros((len(terms), n_dst))
+    for l, t in enumerate(terms):
+        coo = t.dw if side == "dw" else t.up
+        c = float(np.real(t.coeff)) if side == "dw" else 1.0
+        if coo is None:
+            n = min(n_dst, n_src)
+            src[l, :n] = np.arange(n)
+            val[l, :n] = c
+        else:
+            src[l, coo.rows] = coo.cols
+            val[l, coo.rows] = np.real(coo.vals) * c
+    return src, val
 
 
 def make_matvec_op(ham: SectorHamiltonian, cfg: EDConfig, device, pad=None,
@@ -767,21 +800,40 @@ def make_matvec_op(ham: SectorHamiltonian, cfg: EDConfig, device, pad=None,
         up, dw = enc_block(bi)
         hup_spec.append(up)
         hdw_spec.append(dw)
-    # mix terms whose both spin parts encode dense batch per (src, dst)
-    # block pair (kind "bmix"; the superc pairing gives Nbath such terms per
-    # pair); every other term keeps its own launch chain
+    # mix terms batch per (src, dst) block pair (the superc pairing gives
+    # Nbath terms per pair): as signed-gather tables (kind "pmix") where
+    # every spin part is a signed partial permutation and the vector is
+    # real, at any size (the tables are O(L n)); else dense where both
+    # spin parts encode dense (kind "bmix"); every other term keeps its
+    # own launch chain
     mix_spec = []
     pairs: dict = {}
     for t in ham.mix:
-        if t.up is not None and t.dw is not None and not ozaki_n \
-                and max(t.up.shape) <= thr and max(t.dw.shape) <= thr:
-            pairs.setdefault((t.src, t.dst), []).append(t)
+        if not ozaki_n and not is_cplx and np.imag(t.coeff) == 0 \
+                and all(s is None or _signed_perm(s) for s in (t.up, t.dw)):
+            pairs.setdefault((t.src, t.dst), ([], []))[0].append(t)
+            continue
+        small = all(s is None or max(s.shape) <= thr for s in (t.up, t.dw))
+        if t.up is not None and t.dw is not None and not ozaki_n and small:
+            pairs.setdefault((t.src, t.dst), ([], []))[1].append(t)
             continue
         up = enc(t.up, "right") if t.up is not None else None
         dw = enc(t.dw, "left") if t.dw is not None else None
         cidx = push(torch.tensor(t.coeff, dtype=vdtype, device=device))[0]
         mix_spec.append((t.src, t.dst, up, dw, cidx))
-    for (src, dst), ts in pairs.items():
+    for (src, dst), (ps, ts) in pairs.items():
+        if ps:
+            bs, bd = sec.blocks[src], sec.blocks[dst]
+            dsrc, dwt = _perm_tables(ps, "dw", bd.ddw, bs.ddw)
+            usrc, usg = _perm_tables(ps, "up", bd.dup, bs.dup)
+            rows = np.flatnonzero((dsrc >= 0).any(0))
+            idx = push(dev(dsrc, torch.int32), dev(dwt, vdtype),
+                       dev(usrc, torch.int32), dev(usg, vdtype),
+                       dev(rows, torch.int32))
+            mix_spec.append((src, dst, ("pmix", len(ps), rows.size) + idx,
+                             None, None))
+        if not ts:
+            continue
         upT = np.stack([t.up.to_dense().T for t in ts])
         dw = np.stack([t.dw.to_dense() for t in ts])
         idx = push(dev(upT, vdtype), dev(dw, vdtype),
@@ -882,6 +934,21 @@ def _mix_batched(upT, dw, coeff, v):
     return torch.sum(coeff[:, None, None] * z, dim=-3)
 
 
+def _mix_gather(kind_spec, arrays, v, y):
+    """y plus the "pmix" entry's terms applied to v (kernels.mix_gather, in
+    place where the dtypes agree); a complex v goes through as its real
+    and imaginary parts (_real_linear, added to y after), float32 tables
+    meet a float64 v promoted (_promoted)."""
+    from .kernels.mix_gather import mix_gather
+    if v.is_complex():
+        return y + _real_linear(lambda x: _mix_gather(
+            kind_spec, arrays, x, x.new_zeros(y.shape)), v)
+    dsrc, dwt, usrc, usg, rows = (arrays[i] for i in kind_spec[3:8])
+    dwt, usg = _promoted(dwt, v), _promoted(usg, v)
+    return mix_gather(v.to(dwt.dtype), y.to(dwt.dtype), dsrc, dwt, usrc,
+                      usg, rows)
+
+
 def apply_op(spec, arrays, V, gather=None):
     """H·V in the spec/arrays form; V is a tuple of per-block tensors
     [..., ddw, dup] (leading batch dims allowed).
@@ -892,8 +959,10 @@ def apply_op(spec, arrays, V, gather=None):
     diagonal and the up side the local rows.
 
     Under a running profiler (timer.py) an operator with mix terms records
-    one ``hamiltonian.mix`` span around them; an operator without any, or
-    a matvec replayed from a CUDA graph (lanczos._Graphed), records none."""
+    one ``hamiltonian.mix`` span around them, and the counter
+    ``hamiltonian.mix_gather_terms`` the terms its "pmix" entries apply;
+    an operator without any, or a matvec replayed from a CUDA graph
+    (lanczos._Graphed), records none."""
     blocks, diag_idx, hup_spec, hdw_spec, mix_spec, _ = spec
     full = {}
 
@@ -924,8 +993,13 @@ def apply_op(spec, arrays, V, gather=None):
         return tuple(Y)
     with timer.span("hamiltonian.mix", V[0]):
         for (src, dst, up, dw, cidx) in mix_spec:
-            v = V[src] if dw is None and (up is None or up[0] != "bmix") \
+            v = V[src] if dw is None and (up is None or up[0] not in
+                                          ("bmix", "pmix")) \
                 else rows_of(src)
+            if up is not None and up[0] == "pmix":
+                timer.count("hamiltonian.mix_gather_terms", up[1])
+                Y[dst] = _mix_gather(up, arrays, v, Y[dst])
+                continue
             if up is not None and up[0] == "bmix":
                 Y[dst] = Y[dst] + _mix_batched(arrays[up[1]], arrays[up[2]],
                                                arrays[cidx], v)

@@ -44,7 +44,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import timer
+from . import kernels, timer
 from .hamiltonian import apply_op, flatten_blocks, unflatten_blocks
 from .parallel.hxv import row_gather
 from .parallel.mesh import rows_sharded, site_chunk, sites_sharded
@@ -145,7 +145,8 @@ class _Graphed:
     one is most of its time; a graph replays the chain in one host call,
     with the same kernels on the same inputs. Captured on first use; the
     input is copied into the graph's static buffer and the output cloned
-    out of it."""
+    out of it. The hand-written kernels' launch counters
+    (kernels.KERNELS) count what each replay launches, not the capture."""
 
     def __init__(self, mv):
         self.mv = mv
@@ -165,12 +166,16 @@ class _Graphed:
                 self.mv(x_in)            # warm-up before capture
             torch.cuda.current_stream(x.device).wait_stream(side)
             graph = torch.cuda.CUDAGraph()
+            n0 = kernels.launch_counts()
             with torch.cuda.graph(graph):
                 y_out = self.mv(x_in)
-            self.graphs[key] = (graph, x_in, y_out)
-        graph, x_in, y_out = self.graphs[key]
+            took = {k: n - n0[k] for k, n in kernels.launch_counts().items()}
+            kernels.add_launches({k: -n for k, n in took.items()})
+            self.graphs[key] = (graph, x_in, y_out, took)
+        graph, x_in, y_out, took = self.graphs[key]
         x_in.copy_(x)
         graph.replay()
+        kernels.add_launches(took)
         return y_out.clone()
 
 

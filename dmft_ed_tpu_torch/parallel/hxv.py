@@ -9,7 +9,8 @@ each rank keeps the rows it owns of every block, V_b[rows, dup]. Its
 **local operator** (``sharded_sector_op``) holds
 
   * the diagonal's rows, and the dw-side operators' rows (Hdw, and the dw
-    factor of every mix term whose destination rows land on the rank);
+    factor of every mix term whose destination rows land on the rank; a
+    "pmix" entry's dw-side tables and its compact rows);
   * the up-side operators whole.
 
 A matvec (``hamiltonian.apply_op`` with ``gather``) all-gathers each block
@@ -137,7 +138,17 @@ def local_operator(spec, arrays, mesh: Mesh):
                   for bi, s in enumerate(hdw_spec))
     mix_l = []
     for (src, dst, up, dw, cidx) in mix_spec:
-        if up is not None and up[0] == "bmix":
+        if up is not None and up[0] == "pmix":
+            # the dw-side tables keep the rank's destination rows (their
+            # sources index the gathered block); the compact rows are the
+            # rank's local rows that some term writes
+            i_ds, i_dw, i_rows = up[3], up[4], up[7]
+            arrays[i_ds] = arrays[i_ds][:, sls[dst]].contiguous()
+            arrays[i_dw] = arrays[i_dw][:, sls[dst]].contiguous()
+            rows = torch.nonzero((arrays[i_ds] >= 0).any(0)).flatten()
+            arrays[i_rows] = rows.to(torch.int32)
+            up = ("pmix", up[1], int(rows.numel())) + up[3:]
+        elif up is not None and up[0] == "bmix":
             arrays[up[2]] = arrays[up[2]][:, sls[dst]].contiguous()
         elif dw is not None:
             dw = _take_rows(dw, arrays, sls[dst])

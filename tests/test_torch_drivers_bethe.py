@@ -372,7 +372,7 @@ def test_hund_hybrid_operator_ozaki(monkeypatch):
         spec, arrays, blocks = tham.make_matvec_op(
             ht, tc.replace(matmul_precision=prec), "cpu")
         assert {m[2][0] for m in spec[4]} == (
-            {"ozr"} if prec == "ozaki5x7" else {"bmix"})
+            {"ozr"} if prec == "ozaki5x7" else {"pmix"})
         out[prec] = tham.flatten_blocks(tham.apply_op(
             spec, arrays, tham.unflatten_blocks(torch.from_numpy(x),
                                                 blocks))).numpy()

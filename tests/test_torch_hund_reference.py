@@ -118,11 +118,11 @@ def test_dense_sector_matrix(nbath, sec):
 
 @pytest.mark.parametrize("nbath,sec", CASES)
 def test_matvec(nbath, sec):
-    """apply_op (the mix terms as one dense "bmix" entry) equals the
-    reference's matvec (the mix terms as signed gathers) on seeded random
-    vectors."""
+    """apply_op (the mix terms as one signed-gather "pmix" entry) equals
+    the reference's matvec (the mix terms as signed gathers) on seeded
+    random vectors."""
     _, s, _, op = _port(nbath, sec)
-    assert [m[2][0] for m in op[0][4]] == ["bmix"]
+    assert [m[2][0] for m in op[0][4]] == ["pmix"]
     ref = _ref(nbath, sec)
     rng = np.random.default_rng(sum(sec) + nbath)
     for _ in range(3):
@@ -186,8 +186,10 @@ def _traced_matvecs(op, x, n):
 
 def test_mix_span():
     """Under a CPU profiler the Hund operator records one
-    ``hamiltonian.mix`` span per matvec, and the same result bitwise as
-    without the profiler; a single-band operator records none."""
+    ``hamiltonian.mix`` span per matvec and counts its four signed-gather
+    terms in ``hamiltonian.mix_gather_terms``, with the same result
+    bitwise as without the profiler; a single-band operator records
+    none."""
     _, s, _, op = _port(4, (3, 3))
     x = torch.as_tensor(np.random.default_rng(7).standard_normal(s.dim))
     off = _apply(op, x)
@@ -196,7 +198,8 @@ def test_mix_span():
     tot = timer.totals()
     assert tot["hamiltonian.mix"]["spans"] == 3
     assert tot["hamiltonian.mix"]["device_s"] is None
-    assert set(tot) == {"hamiltonian.mix"}
+    assert set(tot) == {"hamiltonian.mix", "hamiltonian.mix_gather_terms"}
+    assert tot["hamiltonian.mix_gather_terms"]["count"] == 12
     assert all(torch.equal(y, off) for y in ys)
     timer.reset()
     _, s1, _, op1 = _port(4, (3, 3), norb=1)

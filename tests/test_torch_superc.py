@@ -12,7 +12,8 @@ Bounds, measured on these configs (Nbath=2-3, Norb=1 and 2):
   (Norb=2) baths: 1e-13 of max|f| (measured 5.0e-15);
 * ``apply_op`` of the Sz=0 and Sz=-1 sectors (5 and 4 blocks at Nbath=3,
   4 and 3 at Nbath=2; Nbath pairing mix terms per adjacent block pair
-  and direction, one batched ``bmix`` entry per pair under ``native``):
+  and direction, one signed-gather ``pmix`` entry per pair under
+  ``native``):
   1e-12 of max|Hv| under ``native`` (measured 2.2e-16, and against the
   dense H) and ``ozaki5x7`` against the JAX package's ``ozaki5x7``
   (measured bitwise);
@@ -156,8 +157,8 @@ def test_apply_op_superc_vs_jax(prec):
         kinds = {m[2][0] for m in st[4]} | {m[3][0] for m in st[4]
                                            if m[3] is not None}
         # native: the Nbath pairing terms of each block pair in one
-        # batched entry; ozaki5x7: one Ozaki product per spin part
-        assert kinds == ({"ozr", "ozl"} if prec != "native" else {"bmix"})
+        # signed-gather entry; ozaki5x7: one Ozaki product per spin part
+        assert kinds == ({"ozr", "ozl"} if prec != "native" else {"pmix"})
         assert len(st[4]) == (len(ht.mix) if prec != "native"
                               else len(ht.mix) // jcfg.nbath)
         H = tham.assemble_dense(ht)
