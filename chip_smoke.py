@@ -192,8 +192,9 @@ block, four Kanamori terms in one "pmix" entry), float64 and float32:
 bitwise against its plain version on the same tables and apply_op against
 the dense "bmix" encoding of the same operator; the kernel's ms beside its
 byte bound (the distinct entries of V read and of Y written, 8 bytes
-each), the plain version's ms and the dense batched products'
-(``hamiltonian._mix_batched``, the library yardstick); then the
+each), the plain version's ms and the dense batched products' with
+their add into Y (the "bmix" entry's ``Bmix.add``, the library
+yardstick); then the
 benchmark cell's thick restart from one start vector in float64, one
 launch per matvec, which gives the kernels line its ``launches``. Its
 ``launches_per_path`` holds every path's count (a CUDA graph's replays
@@ -1810,8 +1811,8 @@ def matvec_calls(cfg, sec, bath, hloc, device):
     from dmft_ed_tpu_torch import lanczos
     from dmft_ed_tpu_torch.hamiltonian import (build_sector_hamiltonian,
                                                make_matvec_op, apply_op,
-                                               flatten_blocks,
-                                               unflatten_blocks)
+                                               flatten_blocks, is_complex,
+                                               mix_entries, unflatten_blocks)
 
     class Count(TorchFunctionMode):
         n = 0
@@ -1823,7 +1824,7 @@ def matvec_calls(cfg, sec, bath, hloc, device):
     ham = build_sector_hamiltonian(cfg, sec, bath, hloc)
     spec, arrays, blocks = make_matvec_op(ham, cfg, device)
     V = unflatten_blocks(torch.randn(
-        sec.dim, dtype=torch.complex128 if spec[-1].startswith("complex")
+        sec.dim, dtype=torch.complex128 if is_complex(spec)
         else torch.float64, device=device), blocks)
     apply_op(spec, arrays, V)
     with Count():
@@ -1845,7 +1846,7 @@ def matvec_calls(cfg, sec, bath, hloc, device):
     if not torch.equal(y, y_g):
         raise AssertionError(f"sector {sec.qn}: the graphed matvec differs "
                              "from the eager one")
-    return Count.n, ms, ms_g, len(spec[4])
+    return Count.n, ms, ms_g, len(mix_entries(spec))
 
 
 def _stages(timers) -> str:
@@ -3126,18 +3127,18 @@ def mix_gather_phase(device, reps: int = 50):
         ham = tham.build_sector_hamiltonian(cfg, sec, bath,
                                             np.zeros((1, 1, 2, 2)))
         spec, arrays, blocks = tham.make_matvec_op(ham, cfg, device)
-        ent = spec[4][0][2]
-        if [m[2][0] for m in spec[4]] != ["pmix"]:
-            raise AssertionError(f"phase 18: mix entries "
-                                 f"{[m[2][0] for m in spec[4]]}")
-        tables = [arrays[i] for i in ent[3:8]]
+        kinds = [m.kind for m in tham.mix_entries(spec)]
+        if kinds != ["pmix"]:
+            raise AssertionError(f"phase 18: mix entries {kinds}")
+        ent = tham.mix_entries(spec)[0]
+        tables = [arrays[i] for i in ent.tables]
         perm = tham._signed_perm
         tham._signed_perm = lambda coo: False
         try:
             dspec, darrays, _ = tham.make_matvec_op(ham, cfg, device)
         finally:
             tham._signed_perm = perm
-        dent = dspec[4][0]
+        dent = tham.mix_entries(dspec)[0]
         g = torch.Generator(device=device).manual_seed(18)
         vt = getattr(torch, dtype)
         x = torch.randn(sec.dim, dtype=vt, device=device, generator=g)
@@ -3166,17 +3167,16 @@ def mix_gather_phase(device, reps: int = 50):
             seen += int(hit.sum())
         nbytes = seen * x.element_size()
         y = y0.clone()
-        rec = dict(dtype=dtype, shape=list(blocks[0]), terms=ent[1],
-                   rows=ent[2], bitwise_plain=bool(torch.equal(got, ref)),
+        rec = dict(dtype=dtype, shape=list(blocks[0]), terms=ent.nterms,
+                   rows=ent.nrows, bitwise_plain=bool(torch.equal(got, ref)),
                    bitwise_dense=bool(same_dense), launches=launched,
                    least_bytes=nbytes,
                    bound_ms=1e3 * nbytes / HBM_BYTES_PER_S,
                    ms=time_ms(lambda: mix_gather(v, y, *tables), reps),
                    plain_ms=time_ms(lambda: mix_gather_plain(v, y, *tables),
                                     5),
-                   dense_ms=time_ms(lambda: tham._mix_batched(
-                       darrays[dent[2][1]], darrays[dent[2][2]],
-                       darrays[dent[4]], v), 10))
+                   dense_ms=time_ms(lambda: dent.add(
+                       darrays, lambda *_: v, y, blocks[0]), 10))
         rec["bound_share"] = rec["bound_ms"] / rec["ms"]
         print("phase 18 mix_gather", json.dumps(rec))
         if not (rec["bitwise_plain"] and rec["bitwise_dense"]):

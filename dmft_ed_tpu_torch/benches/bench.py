@@ -40,7 +40,8 @@ from . import card_line, device_name, peak_gib, reset_peak, timed
 from ..bath import Bath
 from ..config import EDConfig
 from ..device import resolve
-from ..hamiltonian import build_sector_hamiltonian, make_matvec_op
+from ..hamiltonian import (build_sector_hamiltonian, make_matvec_op,
+                           vector_dtype)
 from ..kernels import KERNELS
 from ..lanczos import _op_matvec, _pdot_pair, _real_dtype, eigs_lanczos_op
 from ..sectors import sector_table
@@ -125,7 +126,7 @@ def run(nbath: int = 13, dtype: str = "float64", niter: int = 30,
     before = _launches()
     cfg, sec, ham, spec, arrays, blocks, matvec = build_problem(
         nbath, dtype, matmul_precision, dev)
-    vdt = getattr(torch, spec[-1])
+    vdt = getattr(torch, vector_dtype(spec))
     v0 = start_vector(sec, vdt, dev)
     (vf, al, be), warm = timed(lambda: lanczos_loop(matvec, v0, niter), dev)
     best = min(timed(lambda: lanczos_loop(matvec, v0, niter), dev)[1]

@@ -61,12 +61,13 @@ def sharded_problem(nbath: int, prec: str, mesh):
     """(sector, ham, spec, arrays, blocks, padded sector, v0): bench.py's
     problem as this rank's local operator (``sharded_sector_op``) and the
     rows of a seeded start vector (``shard_flat``)."""
+    from ..hamiltonian import vector_dtype
     from ..parallel.hxv import shard_flat, sharded_sector_op
     cfg, sec, ham = build(nbath, "float64", prec)
     spec, arrays, blocks, sec_p = sharded_sector_op(ham, cfg, mesh)
     v0 = np.random.default_rng(1).normal(size=sec.dim)
     v0 = shard_flat(v0 / np.linalg.norm(v0), sec, sec_p, mesh,
-                    getattr(torch, spec[-1]))
+                    getattr(torch, vector_dtype(spec)))
     return sec, ham, spec, arrays, blocks, sec_p, v0
 
 

@@ -11,7 +11,7 @@ The probe vectors are built on the host (excitations.py); every Krylov
 chain runs on the solver's device through gf_common.ResolventBatch, as the
 Green's functions do. The density channels (n_a ∓ i n_b) are complex
 vectors against a real operator: under ``ozaki*`` they go through the
-Ozaki products as their real and imaginary parts (hamiltonian._real_linear)
+Ozaki products as their real and imaginary parts (hamiltonian._linear)
 — the JAX package's digits drop the imaginary part there. The probe
 channels of several inequivalent sites can share one batch (``site=``,
 lattice_solver._batched_chi).

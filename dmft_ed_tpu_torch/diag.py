@@ -43,7 +43,7 @@ from .sectors import SectorTable, sector_table, sector_label
 from .bath import Bath
 from .eigenspace import StateList
 from .hamiltonian import (build_sector_hamiltonian, assemble_dense,
-                          make_matvec_op)
+                          is_complex, make_matvec_op)
 from .lanczos import (_sizes, eigs_lanczos_op, lanczos_tridiag_op,
                       tridiag_eigh)
 from .parallel.hxv import solve_sector_sharded
@@ -222,7 +222,7 @@ def _solve_sector_lanczos(cfg: EDConfig, ham, neigen: int, rng, device,
             return solve_sector_sharded(cfg, ham, neigen, rng, mesh, v0=v0)
     with tm("diag.encode"):
         spec, arrays, blocks = make_matvec_op(ham, cfg, device)
-    cplx = spec[-1].startswith("complex")
+    cplx = is_complex(spec)
     if v0 is None:
         v0 = _draw_v0(cfg, cplx, sec.dim, rng, device)
     if cfg.lanc_method.lower() != "lanczos":
@@ -333,8 +333,7 @@ def _solve_deferred_ragged(cfg: EDConfig, tasks, results, rng, device,
                 blk = sec.blocks[0]
                 V0[s].view(ddw_pad, dup_pad)[:blk.ddw, :blk.dup] = \
                     v0.reshape(blk.ddw, blk.dup)
-            arrays_stacked = tuple(torch.stack([op[i] for op in ops])
-                                   for i in range(len(ops[0])))
+            arrays_stacked = tuple(torch.stack(a) for a in zip(*ops))
             del ops
         k = max(t[2] for t in ts)
         ncv = max(_ncv(cfg, t[0].dim, t[2]) for t in ts)
@@ -780,11 +779,10 @@ def diagonalize_sites(cfg: EDConfig, baths, hlocs, states=None, log=None,
         ne = max(neigen[i] for i in idx)
         if len(specs) == 1 and len(idx) > 1:
             spec, _, blocks = ops[idx[0]]
-            arrays_stacked = tuple(
-                torch.stack([ops[i][1][a] for i in idx])
-                for a in range(len(ops[idx[0]][1])))
+            arrays_stacked = tuple(torch.stack(a) for a in
+                                   zip(*(ops[i][1] for i in idx)))
             del ops
-            cplx = spec[-1].startswith("complex")
+            cplx = is_complex(spec)
             v0 = rng.normal(size=(len(idx), sec.dim))
             if cplx:
                 v0 = v0 + 1j * rng.normal(size=(len(idx), sec.dim))

@@ -30,7 +30,8 @@ from .sectors import Sector
 from .bath import Bath
 from .eigenspace import StateList
 from .hamiltonian import (SectorHamiltonian, build_sector_hamiltonian,
-                          make_matvec_op)
+                          is_complex, make_matvec_op, mix_entries,
+                          vector_dtype)
 from .lanczos import lanczos_tridiag_op, tridiag_eigh
 from .parallel.hxv import shard_flat, sharded_sector_op
 from .parallel.mesh import rows_sharded
@@ -223,9 +224,8 @@ class ResolventBatch:
                 stack += [stack[0]] * (Bpad - len(stack))
                 v0s.append(np.stack(stack))
             V0 = torch.as_tensor(np.stack(v0s), device=dev)  # [S, Bpad, dim]
-            arrays_stacked = tuple(
-                torch.stack([e[2][i] for e in ents])
-                for i in range(len(ents[0][2])))
+            arrays_stacked = tuple(torch.stack(a) for a in
+                                   zip(*(e[2] for e in ents)))
             al, be, ns = lanczos_tridiag_op_stacked(
                 spec, blocks, arrays_stacked, V0, nlanc)
             al, be, ns = al.cpu().numpy(), be.cpu().numpy(), ns.cpu().numpy()
@@ -300,11 +300,11 @@ class ResolventBatch:
         terms), or None — the reference's grouping key, with the cfg
         fields of the entry's own site."""
         spec, blocks, cfg = e[0], e[1], e[7].cfg
-        if len(blocks) != 1 or spec[4]:
+        if len(blocks) != 1 or mix_entries(spec):
             return None
         dim = blocks[0][0] * blocks[0][1]
         p2 = 1 << (max(dim, 1) - 1).bit_length()
-        return (spec[5], str(cfg.dtype), cfg.matmul_precision,
+        return (vector_dtype(spec), str(cfg.dtype), cfg.matmul_precision,
                 cfg.dense_matmul_threshold, p2)
 
     def _run_ragged(self, ents, ddw_pad, dup_pad):
@@ -337,7 +337,7 @@ class ResolventBatch:
         Bpad = 1 << (max(len(e[4]) for e in ents) - 1).bit_length()
         # complex excitation vectors (chi's combined channels) against a
         # real operator promote the whole stack, as np.result_type does
-        vdt = np.result_type(np.dtype(spec_p[5]),
+        vdt = np.result_type(np.dtype(vector_dtype(spec_p)),
                              *(j[0].dtype for e in ents for j in e[4]))
         V0 = np.zeros((len(ents), Bpad, ddw_pad * dup_pad), dtype=vdt)
         for si, e in enumerate(ents):
@@ -346,8 +346,7 @@ class ResolventBatch:
                 j = e[4][min(b, len(e[4]) - 1)]
                 V0[si, b].reshape(ddw_pad, dup_pad)[:ddw, :dup] = \
                     j[0].reshape(ddw, dup)
-        arrays_stacked = tuple(torch.stack([op[i] for op in ops])
-                               for i in range(len(ops[0])))
+        arrays_stacked = tuple(torch.stack(a) for a in zip(*ops))
         al, be, ns = lanczos_tridiag_op_stacked(
             spec_p, blocks_p, arrays_stacked,
             torch.as_tensor(V0, device=self.device), nlanc)
@@ -371,7 +370,7 @@ class ResolventBatch:
         # complex128 for a complex operator, else cfg.dtype (the JAX
         # package's choice); complex excitation vectors (chi's combined
         # channels) against a real operator keep their imaginary part
-        dt = np.complex128 if spec[-1].startswith("complex") \
+        dt = np.complex128 if is_complex(spec) \
             else np.dtype(cfg.dtype)
         if any(np.iscomplexobj(j[0]) for j in joblist):
             dt = np.result_type(dt, np.complex64)

@@ -574,67 +574,45 @@ def np_unflatten_blocks(x: np.ndarray, sector: Sector):
 
 
 # ----------------------------------------------------------------------
-# matvec in the spec/arrays operator form
+# the sector operator: its format, term kinds, their apply and row split
 # ----------------------------------------------------------------------
 #
-# The operator splits into
-#   spec   — a hashable tuple: block structure, term kinds and shapes,
-#   arrays — a flat tuple of device tensors (diagonals, dense / Ozaki-digit
-#            / COO operator data, mix coefficients).
-# Term kinds: "dense" (O @ V or V @ O^T), "ozl"/"ozr" (pre-sliced Ozaki
-# digits, left/right operand, through kernels.digit_matmul), "ozf" (both
-# spin parts as raw f64 matrices for ozaki.fused_two_sided, opt-in), "coo"
-# (gather + index_add_), "none" (empty operator); a mix entry of kind
-# "pmix" holds every mix term of one (src, dst) block pair whose spin parts
-# are signed partial permutations as per-term gather tables (real vectors,
-# no Ozaki; kernels.mix_gather), one of kind "bmix" every other dense mix
-# term of a pair, stacked.
-# A complex vector against a real dense or Ozaki operator goes through as
-# its real and imaginary parts (``_real_linear``).
-
-def _rdtype(cfg: EDConfig):
-    """The working real dtype, cfg.dtype ("float64" or "float32")."""
-    if cfg.dtype not in ("float64", "float32"):
-        raise ValueError(f"dtype={cfg.dtype!r}: float64 or float32")
-    return getattr(torch, cfg.dtype)
-
-
-def _vdtype(ham: SectorHamiltonian, cfg: EDConfig):
-    """(is_cplx, vector dtype): cfg.dtype for a real operator, complex128
-    (float64) or complex64 (float32) for a complex one."""
-    is_cplx = np.issubdtype(ham.dtype, np.complexfloating)
-    if not is_cplx:
-        return False, _rdtype(cfg)
-    return True, torch.complex128 if cfg.dtype == "float64" \
-        else torch.complex64
-
-
-def _ozaki_params(cfg: EDConfig, is_cplx: bool):
-    """(nslices, bits), or (0, 0) for plain matmuls: Ozaki digits serve
-    real float64 operators only (under float32 an ``ozaki*`` config runs
-    plain float32 products, as in the JAX package)."""
-    if cfg.matmul_precision.startswith("ozaki") and not is_cplx \
-            and cfg.dtype == "float64":
-        from .ozaki import parse_precision
-        return parse_precision(cfg.matmul_precision)
-    return 0, 0
-
-
-def _apply_spin_coo_up(V, rows, cols, vals, out_cols):
-    """Y[..., :, rows] += vals * V[..., :, cols] (gather + index_add_)."""
-    G = V[..., cols] * vals
-    Y = torch.zeros(V.shape[:-1] + (out_cols,), dtype=G.dtype,
-                    device=V.device)
-    return Y.index_add_(-1, rows, G)
-
-
-def _apply_spin_coo_dw(V, rows, cols, vals, out_rows):
-    """Y[..., rows, :] += vals * V[..., cols, :]."""
-    G = V[..., cols, :] * vals[:, None]
-    Y = torch.zeros(V.shape[:-2] + (out_rows, V.shape[-1]), dtype=G.dtype,
-                    device=V.device)
-    return Y.index_add_(-2, rows, G)
-
+# make_matvec_op splits an operator into
+#   spec   — a hashable 6-tuple (blocks, diag_idx, hup, hdw, mix, vtag):
+#            every block's (ddw, dup) and diagonal index, every block's
+#            up-side and dw-side spin part, the mix entries, and the name
+#            of the vector dtype;
+#   arrays — a flat tuple of device tensors, which the records index.
+# Every spin part and mix entry is one record below: a NamedTuple of ints,
+# strings and records whose first field, ``kind``, names it (so the specs
+# of one ragged bucket compare equal). Each record class holds its
+# encoder (``encode``; Empty's is its constructor), its apply (``product``
+# for a spin part, ``add`` for a mix entry) and its row split
+# (``take_rows``: the dw side of a row-sharded operator keeps the rank's
+# output rows and reads the gathered block; the up side stays whole and
+# reads the local rows). The kinds (Encoder.part picks a spin part's,
+# make_matvec_op a mix term's):
+#   "none"  — an empty part (COO above the dense threshold without
+#             nonzeros), and "ozf", the up side of a fused block: Empty;
+#   "dense" — O @ v (dw side) or v @ O^T (up side): Dense;
+#   "ozl" / "ozr" — the same through pre-sliced Ozaki digits of the left
+#             / right operand (kernels.digit_matmul), real float64: Ozaki;
+#   "ozf"   — a block's both spin parts as one fused Ozaki product of the
+#             raw float64 matrices (ozaki.fused_two_sided, opt-in): Fused;
+#   "coo"   — gather + index_add_, above dense_matmul_threshold: Coo;
+#   "pmix"  — every mix term of a (src, dst) block pair whose spin parts
+#             are signed partial permutations, as per-term gather tables
+#             (real vectors, no Ozaki; kernels.mix_gather): Pmix;
+#   "bmix"  — every other mix term of a pair with dense spin parts,
+#             stacked into two batched products: Bmix;
+#   "chain" — one mix term as its own up then dw spin part (Ozaki, COO or
+#             the identity), times its coefficient: Chain.
+# One dtype rule (_linear) serves every product but COO's: a real
+# operator meets a complex vector as its real and imaginary parts, a
+# float32 operator a float64 vector promoted. Other modules ask about an
+# operator through the accessors (is_complex, vector_dtype, mix_entries,
+# op_kinds, graphable, ...) and split it through take_rows; none reads a
+# slot of the spec or a field of a record.
 
 def _ozaki_left(digits, scales, v, nsl, bits):
     """O @ v for v [..., k, n]: leading batch dims fold into the columns."""
@@ -657,6 +635,166 @@ def _ozaki_right(digits, scales, v, nsl, bits):
     m, k = v.shape[-2:]
     R = right_sliced_matmul(v.reshape(-1, k), digits, scales, nsl, bits)
     return R.reshape(v.shape[:-1] + (R.shape[-1],))
+
+
+def _linear(fn, v, *ops, y=None):
+    """fn(v, *ops), a linear map by the operator tensors `ops`; with `y`,
+    fn(x, *ops, acc) adds into acc (in place where it can) and this is y
+    plus the map of v. The one dtype rule: each op takes the dtype of its
+    product with v (as the JAX package promotes; torch does not), a
+    complex op takes v in its dtype, and a real op meets a complex v as
+    its real and imaginary parts, never a cast that drops the imaginary
+    part (as the JAX package's Ozaki digits do)."""
+    def cast(d):
+        vd = v.real.dtype if v.is_complex() and not d.is_complex() \
+            else v.dtype
+        dt = torch.promote_types(d.dtype, vd)
+        return d if d.dtype == dt else d.to(dt)
+    ops = [cast(d) for d in ops]
+    if ops and ops[0].is_complex():
+        if v.dtype != ops[0].dtype:
+            v = v.to(ops[0].dtype)
+    elif v.is_complex():
+        if y is None:
+            return torch.complex(fn(v.real, *ops), fn(v.imag, *ops))
+        return y + torch.complex(*(fn(x, *ops, x.new_zeros(y.shape))
+                                   for x in (v.real, v.imag)))
+    return fn(v, *ops) if y is None else fn(v, *ops, y)
+
+
+class Empty(NamedTuple):
+    """A spin part that adds nothing ("none"; "ozf", a fused block's up
+    side): apply_op and Chain skip it, so it reads no block."""
+    kind: str
+
+    def take_rows(self, arrays, sl):
+        return self
+
+
+class Dense(NamedTuple):
+    """O @ v on the dw side, v @ O^T on the up side."""
+    kind: str
+    dat: int
+
+    @classmethod
+    def encode(cls, enc, dense):
+        return cls("dense", *enc.push(enc.dev(dense, enc.vdtype)))
+
+    def product(self, arrays, x, side, shape):
+        fn = (lambda v, d: v @ d.T) if side == "right" \
+            else (lambda v, d: d @ v)
+        return _linear(fn, x, arrays[self.dat])
+
+    def take_rows(self, arrays, sl):
+        arrays[self.dat] = arrays[self.dat][sl].contiguous()
+        return self
+
+
+class Ozaki(NamedTuple):
+    """"ozl" / "ozr": Dense's products through O's pre-sliced digits."""
+    kind: str
+    nsl: int
+    bits: int
+    digits: int
+    scales: int
+
+    @classmethod
+    def encode(cls, enc, dense, side):
+        from .ozaki import SlicedMatrix, SlicedRightOperand
+        d = enc.dev(dense, enc.rdtype)
+        op = SlicedMatrix(d, enc.nsl, enc.bits) if side == "left" \
+            else SlicedRightOperand(d.T, enc.nsl, enc.bits)
+        return cls("oz" + side[0], enc.nsl, enc.bits,
+                   *enc.push(op.digits, op.scales))
+
+    def product(self, arrays, x, side, shape):
+        fn = _ozaki_left if side == "left" else _ozaki_right
+        dg, sc = arrays[self.digits], arrays[self.scales]
+        return _linear(lambda v: fn(dg, sc, v, self.nsl, self.bits), x)
+
+    def take_rows(self, arrays, sl):
+        # the left operand's row scales keep the products bitwise
+        arrays[self.digits] = arrays[self.digits][:, sl].contiguous()
+        arrays[self.scales] = arrays[self.scales][sl].contiguous()
+        return self
+
+
+class Fused(NamedTuple):
+    """A block's dw side: Hdw @ v + v @ Hup^T in one fused product."""
+    kind: str
+    nsl: int
+    bits: int
+    hdw: int
+    hupT: int
+
+    @classmethod
+    def encode(cls, enc, coo_up, coo_dw, up_pad=None, dw_pad=None):
+        """(up, dw) where both spin parts encode dense-Ozaki, else None."""
+        if not (enc.nsl and enc.dense_class(coo_up, up_pad)
+                and enc.dense_class(coo_dw, dw_pad)):
+            return None
+        du, dd = enc.embed(coo_up, up_pad), enc.embed(coo_dw, dw_pad)
+        return Empty("ozf"), cls("ozf", enc.nsl, enc.bits, *enc.push(
+            enc.dev(dd, enc.rdtype), enc.dev(du.T, enc.rdtype)))
+
+    def product(self, arrays, x, side, shape):
+        # one product per leading index (λ per matrix, as under the
+        # reference's vmap)
+        from .ozaki import fused_two_sided
+        H = arrays[self.hdw], arrays[self.hupT]
+
+        def fn(v):
+            if v.dim() == 2:
+                return fused_two_sided(*H, v, self.nsl, self.bits)
+            return torch.stack([fused_two_sided(*H, m, self.nsl, self.bits)
+                                for m in v.reshape((-1,) + v.shape[-2:])]
+                               ).reshape(v.shape)
+        return _linear(fn, x)
+
+    def take_rows(self, arrays, sl):
+        raise ValueError("row-sharded operator: no row split for 'ozf'")
+
+
+class Coo(NamedTuple):
+    """Y[rows] += vals * v[cols] along the side's axis."""
+    kind: str
+    rows: int
+    cols: int
+    vals: int
+
+    @classmethod
+    def encode(cls, enc, coo, n_pad=None, nnz_pad=0):
+        """Padded to nnz_pad with zero entries at (0, 0) if n_pad is given."""
+        rows, cols, vals = coo.rows, coo.cols, coo.vals
+        if n_pad is not None:
+            rows, cols, vals = (np.pad(a, (0, nnz_pad - a.size))
+                                for a in (rows, cols, vals))
+        return cls("coo", *enc.push(enc.dev(rows, torch.int64),
+                                    enc.dev(cols, torch.int64),
+                                    enc.dev(vals, enc.vdtype)))
+
+    def product(self, arrays, x, side, shape):
+        rows, cols, vals = (arrays[i] for i in (self.rows, self.cols,
+                                                self.vals))
+        if side == "right":         # Y[..., :, rows] += vals * x[..., :, cols]
+            G = x[..., cols] * vals
+            Y = torch.zeros(x.shape[:-1] + (shape[1],), dtype=G.dtype,
+                            device=x.device)
+            return Y.index_add_(-1, rows, G)
+        G = x[..., cols, :] * vals[:, None]
+        Y = torch.zeros(x.shape[:-2] + (shape[0], x.shape[-1]),
+                        dtype=G.dtype, device=x.device)
+        return Y.index_add_(-2, rows, G)
+
+    def take_rows(self, arrays, sl):
+        # kept even where no entry lands on this rank: whether a matvec
+        # gathers a block must not differ between the ranks
+        rows = arrays[self.rows]
+        keep = (rows >= sl.start) & (rows < sl.stop)
+        arrays[self.rows] = rows[keep] - sl.start
+        arrays[self.cols] = arrays[self.cols][keep]
+        arrays[self.vals] = arrays[self.vals][keep]
+        return self
 
 
 def _signed_perm(coo: SpinCOO) -> bool:
@@ -689,12 +827,169 @@ def _perm_tables(terms, side: str, n_dst: int, n_src: int):
     return src, val
 
 
+class Pmix(NamedTuple):
+    """A block pair's signed-permutation terms as the gather tables of
+    kernels.mix_gather: (dsrc, dwt, usrc, usg, rows), nrows rows."""
+    kind: str
+    src: int
+    dst: int
+    nterms: int
+    nrows: int
+    tables: tuple
+
+    @classmethod
+    def encode(cls, enc, terms, sec):
+        src, dst = terms[0].src, terms[0].dst
+        bs, bd = sec.blocks[src], sec.blocks[dst]
+        dsrc, dwt = _perm_tables(terms, "dw", bd.ddw, bs.ddw)
+        usrc, usg = _perm_tables(terms, "up", bd.dup, bs.dup)
+        rows = np.flatnonzero((dsrc >= 0).any(0))
+        return cls("pmix", src, dst, len(terms), rows.size, enc.push(
+            enc.dev(dsrc, torch.int32), enc.dev(dwt, enc.vdtype),
+            enc.dev(usrc, torch.int32), enc.dev(usg, enc.vdtype),
+            enc.dev(rows, torch.int32)))
+
+    def add(self, arrays, read, y, shape):
+        from .kernels.mix_gather import mix_gather
+        v = read(self.src)
+        timer.count("hamiltonian.mix_gather_terms", self.nterms)
+        dsrc, dwt, usrc, usg, rows = (arrays[i] for i in self.tables)
+        return _linear(lambda x, dwt, usg, acc: mix_gather(
+            x.to(dwt.dtype), acc.to(dwt.dtype), dsrc, dwt, usrc, usg, rows),
+            v, dwt, usg, y=y)
+
+    def take_rows(self, arrays, sl):
+        # the dw-side tables keep the rank's destination rows (their
+        # sources index the gathered block); rows, the local ones written
+        i_ds, i_dw, _, _, i_rows = self.tables
+        for i in (i_ds, i_dw):
+            arrays[i] = arrays[i][:, sl].contiguous()
+        rows = torch.nonzero((arrays[i_ds] >= 0).any(0)).flatten()
+        arrays[i_rows] = rows.to(torch.int32)
+        return self._replace(nrows=int(rows.numel()))
+
+
+class Bmix(NamedTuple):
+    """Σ_l coeff[l] · dw[l] @ v @ upT[l] over a block pair's terms."""
+    kind: str
+    src: int
+    dst: int
+    upT: int
+    dw: int
+    coeff: int
+
+    @classmethod
+    def encode(cls, enc, terms):
+        upT = np.stack([t.up.to_dense().T for t in terms])
+        dw = np.stack([t.dw.to_dense() for t in terms])
+        return cls("bmix", terms[0].src, terms[0].dst, *enc.push(
+            enc.dev(upT, enc.vdtype), enc.dev(dw, enc.vdtype),
+            torch.tensor([t.coeff for t in terms], dtype=enc.vdtype,
+                         device=enc.device)))
+
+    def add(self, arrays, read, y, shape):
+        z = _linear(lambda x, u, d: torch.matmul(
+            d, torch.matmul(x.unsqueeze(-3), u)), read(self.src),
+            arrays[self.upT], arrays[self.dw])
+        return y + torch.sum(arrays[self.coeff][:, None, None] * z, dim=-3)
+
+    def take_rows(self, arrays, sl):
+        arrays[self.dw] = arrays[self.dw][:, sl].contiguous()
+        return self
+
+
+class Chain(NamedTuple):
+    """coeff · dw @ v @ up^T, one mix term (a None side: the identity)."""
+    kind: str
+    src: int
+    dst: int
+    up: Optional[tuple]
+    dw: Optional[tuple]
+    coeff: int
+
+    @classmethod
+    def encode(cls, enc, t):
+        up = enc.part(t.up, "right") if t.up is not None else None
+        dw = enc.part(t.dw, "left") if t.dw is not None else None
+        return cls("chain", t.src, t.dst, up, dw, *enc.push(
+            torch.tensor(t.coeff, dtype=enc.vdtype, device=enc.device)))
+
+    def add(self, arrays, read, y, shape):
+        v = read(self.src, self.dw is not None)
+        for part, side in ((self.up, "right"), (self.dw, "left")):
+            if isinstance(part, Empty):
+                return y
+            if part is not None:
+                v = part.product(arrays, v, side, shape)
+        return y + arrays[self.coeff] * v
+
+    def take_rows(self, arrays, sl):
+        if self.dw is None:
+            return self
+        return self._replace(dw=self.dw.take_rows(arrays, sl))
+
+
+class Encoder:
+    """Builds the records; ``arrays`` collects the tensors they index. The
+    diagonal and Ozaki operands take cfg.dtype, other operators the vector
+    dtype (complex128 / complex64 for a complex operator). Ozaki digits
+    serve real float64 operators only (as in the JAX package)."""
+
+    def __init__(self, cfg: EDConfig, device, is_cplx: bool):
+        if cfg.dtype not in ("float64", "float32"):
+            raise ValueError(f"dtype={cfg.dtype!r}: float64 or float32")
+        self.device, self.is_cplx = device, is_cplx
+        self.rdtype = getattr(torch, cfg.dtype)
+        self.vdtype = self.rdtype if not is_cplx else \
+            torch.complex128 if cfg.dtype == "float64" else torch.complex64
+        self.thr = cfg.dense_matmul_threshold
+        self.nsl, self.bits = 0, 0
+        if cfg.matmul_precision.startswith("ozaki") and not is_cplx \
+                and cfg.dtype == "float64":
+            from .ozaki import parse_precision
+            self.nsl, self.bits = parse_precision(cfg.matmul_precision)
+        self.arrays = []
+
+    def push(self, *arrs):
+        i0 = len(self.arrays)
+        self.arrays.extend(arrs)
+        return tuple(range(i0, len(self.arrays)))
+
+    def dev(self, a, dtype):
+        return torch.as_tensor(np.asarray(a), device=self.device).to(dtype)
+
+    def embed(self, coo, n_pad):
+        """coo's dense matrix, zero-embedded into [n_pad, n_pad] if given."""
+        d = coo.to_dense()
+        return d if n_pad is None else np.pad(d, [(0, n_pad - n)
+                                                  for n in d.shape])
+
+    def dense_class(self, coo, n_pad=None):
+        """Whether a spin part (of padded size n_pad) encodes dense."""
+        return (max(coo.shape) if n_pad is None else n_pad) <= self.thr
+
+    def dense(self, dense, side):
+        """A dense-class spin part: its Ozaki digits where they serve,
+        else the matrix."""
+        return Ozaki.encode(self, dense, side) if self.nsl \
+            else Dense.encode(self, dense)
+
+    def part(self, coo, side, n_pad=None, nnz_pad=0):
+        """A spin part's record, decided from the padded shape where n_pad
+        is given: dense-class at or below dense_matmul_threshold, COO above
+        it, Empty("none") where it has no nonzeros."""
+        if self.dense_class(coo, n_pad):
+            return self.dense(self.embed(coo, n_pad), side)
+        if (coo.rows.size if n_pad is None else nnz_pad) == 0:
+            return Empty("none")
+        return Coo.encode(self, coo, n_pad, nnz_pad)
+
+
 def make_matvec_op(ham: SectorHamiltonian, cfg: EDConfig, device, pad=None,
                    fused=None):
     """Returns (spec, arrays, blocks): use with `apply_op(spec, arrays, V)`
-    or `lanczos.lanczos_tridiag_op`. Every array lives on `device`; the
-    diagonal takes cfg.dtype, every other operator the vector dtype
-    (_vdtype), Ozaki digits only under float64.
+    or `lanczos.lanczos_tridiag_op`. Every array lives on `device`
+    (Encoder gives their dtypes).
 
     fused: encode both-dense-Ozaki blocks as one fused product (kind "ozf");
     None for device.ozaki_fused()'s choice (the row-sharded operator asks
@@ -709,140 +1004,48 @@ def make_matvec_op(ham: SectorHamiltonian, cfg: EDConfig, device, pad=None,
     sec = ham.sector
     if pad is not None and (len(sec.blocks) != 1 or ham.mix):
         raise ValueError("padded op requires a single block and no mix terms")
-    is_cplx, vdtype = _vdtype(ham, cfg)
-    rdtype = _rdtype(cfg)
-    thr = cfg.dense_matmul_threshold
-    ozaki_n, ozaki_b = _ozaki_params(cfg, is_cplx)
+    enc = Encoder(cfg, device, np.issubdtype(ham.dtype, np.complexfloating))
     if fused is None:
         from .device import ozaki_fused
         fused = ozaki_fused()
 
-    arrays = []
-
-    def push(*arrs):
-        i0 = len(arrays)
-        arrays.extend(arrs)
-        return tuple(range(i0, len(arrays)))
-
-    def dev(a, dtype):
-        return torch.as_tensor(np.asarray(a), device=device).to(dtype)
-
-    def embed(dense, n_pad):
-        if n_pad is None:
-            return dense
-        d = np.zeros((n_pad, n_pad), dtype=complex if is_cplx else float)
-        d[:dense.shape[0], :dense.shape[1]] = dense
-        return d
-
-    def enc_fused(coo_up: SpinCOO, coo_dw: SpinCOO, up_pad=None,
-                  dw_pad=None):
-        """('ozf', n, b, iHdw, iHupT) when both spin parts of a block
-        encode dense-Ozaki and the fused product is asked for
-        (device.ozaki_fused): one K-concat product for Hdw@V + V@HupT
-        (ozaki.fused_two_sided), with the raw f64 matrices pushed."""
-        if not ozaki_n or not fused:
-            return None
-        if (max(coo_up.shape) if up_pad is None else up_pad) > thr or \
-                (max(coo_dw.shape) if dw_pad is None else dw_pad) > thr:
-            return None
-        du = embed(coo_up.to_dense(), up_pad)
-        dd = embed(coo_dw.to_dense(), dw_pad)
-        return ("ozf", ozaki_n, ozaki_b) + push(dev(dd, rdtype),
-                                                dev(du.T, rdtype))
-
-    def enc(coo: SpinCOO, side: str, n_pad=None, nnz_pad=0):
-        n, m = coo.shape
-        if (max(n, m) if n_pad is None else n_pad) <= thr:
-            dense = embed(coo.to_dense(), n_pad)
-            if ozaki_n:
-                from . import ozaki as _oz
-                d = dev(dense, rdtype)
-                op = _oz.SlicedMatrix(d, ozaki_n, ozaki_b) if side == "left" \
-                    else _oz.SlicedRightOperand(d.T, ozaki_n, ozaki_b)
-                idx = push(op.digits, op.scales)
-                return ("oz" + side[0], ozaki_n, ozaki_b) + idx
-            return ("dense",) + push(dev(dense, vdtype))
-        if (coo.rows.size if n_pad is None else nnz_pad) == 0:
-            return ("none",)
-        rows, cols, vals = coo.rows, coo.cols, coo.vals
-        if n_pad is not None:
-            k = coo.rows.size
-            rows = np.zeros(nnz_pad, dtype=np.int64)
-            cols = np.zeros(nnz_pad, dtype=np.int64)
-            vals = np.zeros(nnz_pad, dtype=complex if is_cplx else float)
-            rows[:k], cols[:k], vals[:k] = coo.rows, coo.cols, coo.vals
-        return ("coo",) + push(dev(rows, torch.int64), dev(cols, torch.int64),
-                               dev(vals, vdtype))
-
-    def enc_block(bi, dup_pad=None, ddw_pad=None, nnz_up=0, nnz_dw=0):
-        f = enc_fused(ham.hup[bi], ham.hdw[bi], dup_pad, ddw_pad)
-        if f is not None:
-            return ("ozf",), f
-        return (enc(ham.hup[bi], "right", dup_pad, nnz_up),
-                enc(ham.hdw[bi], "left", ddw_pad, nnz_dw))
-
-    vtag = str(vdtype).replace("torch.", "")
-    if pad is not None:
-        ddw_pad, dup_pad, nnz_up, nnz_dw = pad
-        blk = sec.blocks[0]
-        diag = np.zeros((ddw_pad, dup_pad))
-        diag[:blk.ddw, :blk.dup] = ham.diag[0]
-        diag_idx = push(dev(diag, rdtype))[0]
-        hup_spec, hdw_spec = enc_block(0, dup_pad, ddw_pad, nnz_up, nnz_dw)
-        blocks = ((ddw_pad, dup_pad),)
-        spec = (blocks, (diag_idx,), (hup_spec,), (hdw_spec,), (), vtag)
-        return spec, tuple(arrays), blocks
-
     blocks = tuple((b.ddw, b.dup) for b in sec.blocks)
-    diag_idx, hup_spec, hdw_spec = [], [], []
-    for bi in range(len(sec.blocks)):
-        diag_idx.append(push(dev(ham.diag[bi], rdtype))[0])
-        up, dw = enc_block(bi)
-        hup_spec.append(up)
-        hdw_spec.append(dw)
+    diags, pads = ham.diag, [(None, None, 0, 0)] * len(blocks)
+    if pad is not None:
+        blocks, pads, diags = (tuple(pad[:2]),), [pad], [np.zeros(pad[:2])]
+        diags[0][:sec.blocks[0].ddw, :sec.blocks[0].dup] = ham.diag[0]
+    diag_idx, hup, hdw = [], [], []
+    for bi, (ddw_pad, dup_pad, nnz_up, nnz_dw) in enumerate(pads):
+        diag_idx += enc.push(enc.dev(diags[bi], enc.rdtype))
+        parts = Fused.encode(enc, ham.hup[bi], ham.hdw[bi], dup_pad,
+                             ddw_pad) if fused else None
+        up, dw = parts or (enc.part(ham.hup[bi], "right", dup_pad, nnz_up),
+                           enc.part(ham.hdw[bi], "left", ddw_pad, nnz_dw))
+        hup.append(up)
+        hdw.append(dw)
     # mix terms batch per (src, dst) block pair (the superc pairing gives
-    # Nbath terms per pair): as signed-gather tables (kind "pmix") where
-    # every spin part is a signed partial permutation and the vector is
-    # real, at any size (the tables are O(L n)); else dense where both
-    # spin parts encode dense (kind "bmix"); every other term keeps its
-    # own launch chain
-    mix_spec = []
-    pairs: dict = {}
+    # Nbath terms per pair): as signed-gather tables ("pmix") where every
+    # spin part is a signed partial permutation and the vector is real, at
+    # any size (the tables are O(L n)); else dense where both spin parts
+    # encode dense ("bmix"); every other term keeps its own chain
+    mix, pairs = [], {}
     for t in ham.mix:
-        if not ozaki_n and not is_cplx and np.imag(t.coeff) == 0 \
+        if not enc.nsl and not enc.is_cplx and np.imag(t.coeff) == 0 \
                 and all(s is None or _signed_perm(s) for s in (t.up, t.dw)):
             pairs.setdefault((t.src, t.dst), ([], []))[0].append(t)
-            continue
-        small = all(s is None or max(s.shape) <= thr for s in (t.up, t.dw))
-        if t.up is not None and t.dw is not None and not ozaki_n and small:
+        elif t.up is not None and t.dw is not None and not enc.nsl and \
+                all(enc.dense_class(s) for s in (t.up, t.dw)):
             pairs.setdefault((t.src, t.dst), ([], []))[1].append(t)
-            continue
-        up = enc(t.up, "right") if t.up is not None else None
-        dw = enc(t.dw, "left") if t.dw is not None else None
-        cidx = push(torch.tensor(t.coeff, dtype=vdtype, device=device))[0]
-        mix_spec.append((t.src, t.dst, up, dw, cidx))
-    for (src, dst), (ps, ts) in pairs.items():
+        else:
+            mix.append(Chain.encode(enc, t))
+    for ps, ts in pairs.values():
         if ps:
-            bs, bd = sec.blocks[src], sec.blocks[dst]
-            dsrc, dwt = _perm_tables(ps, "dw", bd.ddw, bs.ddw)
-            usrc, usg = _perm_tables(ps, "up", bd.dup, bs.dup)
-            rows = np.flatnonzero((dsrc >= 0).any(0))
-            idx = push(dev(dsrc, torch.int32), dev(dwt, vdtype),
-                       dev(usrc, torch.int32), dev(usg, vdtype),
-                       dev(rows, torch.int32))
-            mix_spec.append((src, dst, ("pmix", len(ps), rows.size) + idx,
-                             None, None))
-        if not ts:
-            continue
-        upT = np.stack([t.up.to_dense().T for t in ts])
-        dw = np.stack([t.dw.to_dense() for t in ts])
-        idx = push(dev(upT, vdtype), dev(dw, vdtype),
-                   torch.tensor([t.coeff for t in ts], dtype=vdtype,
-                                device=device))
-        mix_spec.append((src, dst, ("bmix",) + idx[:2], None, idx[2]))
-    spec = (blocks, tuple(diag_idx), tuple(hup_spec), tuple(hdw_spec),
-            tuple(mix_spec), vtag)
-    return spec, tuple(arrays), blocks
+            mix.append(Pmix.encode(enc, ps, sec))
+        if ts:
+            mix.append(Bmix.encode(enc, ts))
+    spec = (blocks, tuple(diag_idx), tuple(hup), tuple(hdw), tuple(mix),
+            str(enc.vdtype).replace("torch.", ""))
+    return spec, tuple(enc.arrays), blocks
 
 
 def make_padded_matvec_op(ham: SectorHamiltonian, cfg: EDConfig,
@@ -863,90 +1066,61 @@ def make_padded_matvec_op(ham: SectorHamiltonian, cfg: EDConfig,
                           pad=(ddw_pad, dup_pad, nnz_up, nnz_dw))
 
 
-def _real_linear(fn, v):
-    """fn, a real linear map, applied to v. A complex v goes through as its
-    real and its imaginary part, two real products recombined: never a
-    cast that drops the imaginary part (the JAX package's Ozaki digits
-    take only the real part of a complex operand)."""
-    if v.is_complex():
-        return torch.complex(fn(v.real), fn(v.imag))
-    return fn(v)
+# ----------------------------------------------------------------------
+# what other modules ask of an operator spec
+# ----------------------------------------------------------------------
+
+def is_complex(spec) -> bool:
+    """Whether the operator's vectors are complex."""
+    return spec[5].startswith("complex")
 
 
-def _promoted(dat, v):
-    """dat cast to the dtype its product with v takes (the JAX package
-    promotes a float32 operator against a float64 or complex128 vector;
-    torch's matmul does not). A real dat meets a complex v's parts."""
-    vd = v.real.dtype if v.is_complex() and not dat.is_complex() else v.dtype
-    dt = torch.promote_types(dat.dtype, vd)
-    return dat if dat.dtype == dt else dat.to(dt)
+def vector_dtype(spec) -> str:
+    """The name of the operator's vector dtype ("complex128", ...)."""
+    return spec[5]
 
 
-def _dense_apply(dat, v, side):
-    """dat @ v (left) or v @ dat^T (right); a complex v against a real dat
-    goes through as its real and imaginary parts."""
-    dat = _promoted(dat, v)
-    if dat.is_complex() and v.dtype != dat.dtype:
-        v = v.to(dat.dtype)
-    fn = (lambda x: x @ dat.T) if side == "right" else (lambda x: dat @ x)
-    return fn(v) if dat.is_complex() else _real_linear(fn, v)
+def spin_parts(spec) -> tuple:
+    """Every block's up-side spin part, then every block's dw-side one."""
+    return spec[2] + spec[3]
 
 
-def _fused(Hdw, HupT, v, nsl, bits):
-    """ozaki.fused_two_sided over v [..., ddw, dup]: one product per
-    leading index (λ is per matrix, as under the reference's vmap)."""
-    from .ozaki import fused_two_sided
-    if v.dim() == 2:
-        return fused_two_sided(Hdw, HupT, v, nsl, bits)
-    out = torch.stack([fused_two_sided(Hdw, HupT, x, nsl, bits)
-                       for x in v.reshape((-1,) + v.shape[-2:])])
-    return out.reshape(v.shape)
+def mix_entries(spec) -> tuple:
+    """The mix entries, in the order apply_op adds them."""
+    return spec[4]
 
 
-def _app(kind_spec, arrays, v, side, out_dim):
-    kind = kind_spec[0]
-    if kind == "none":
-        return None
-    if kind == "dense":
-        return _dense_apply(arrays[kind_spec[1]], v, side)
-    if kind in ("ozr", "ozl"):
-        nsl, bits = kind_spec[1], kind_spec[2]
-        dg, sc = arrays[kind_spec[3]], arrays[kind_spec[4]]
-        f = _ozaki_right if kind == "ozr" else _ozaki_left
-        return _real_linear(lambda x: f(dg, sc, x, nsl, bits), v)
-    rows, cols, vals = (arrays[i] for i in kind_spec[1:4])
-    if side == "right":
-        return _apply_spin_coo_up(v, rows, cols, vals, out_dim)
-    return _apply_spin_coo_dw(v, rows, cols, vals, out_dim)
+def op_kinds(spec) -> set:
+    """Every kind in the operator, its mix chains' parts included."""
+    terms = list(spin_parts(spec))
+    for m in mix_entries(spec):
+        terms.append(m)
+        if isinstance(m, Chain):
+            terms += [p for p in (m.up, m.dw) if p is not None]
+    return {t.kind for t in terms}
 
 
-def _mix_batched(upT, dw, coeff, v):
-    """Σ_l coeff[l] · dw[l] @ v @ upT[l] for v [..., m, k]: the mix terms
-    of one (src, dst) block pair in two batched products and one weighted
-    sum over l."""
-    upT, dw = _promoted(upT, v), _promoted(dw, v)
-    if upT.is_complex() and v.dtype != upT.dtype:
-        v = v.to(upT.dtype)
-
-    def fn(x):
-        return torch.matmul(dw, torch.matmul(x.unsqueeze(-3), upT))
-    z = fn(v) if upT.is_complex() else _real_linear(fn, v)
-    return torch.sum(coeff[:, None, None] * z, dim=-3)
+def graphable(spec) -> bool:
+    """Whether a matvec may replay from a CUDA graph (lanczos._Graphed):
+    several blocks and no Ozaki part."""
+    return len(spec[0]) > 1 and not op_kinds(spec) & {"ozl", "ozr", "ozf"}
 
 
-def _mix_gather(kind_spec, arrays, v, y):
-    """y plus the "pmix" entry's terms applied to v (kernels.mix_gather, in
-    place where the dtypes agree); a complex v goes through as its real
-    and imaginary parts (_real_linear, added to y after), float32 tables
-    meet a float64 v promoted (_promoted)."""
-    from .kernels.mix_gather import mix_gather
-    if v.is_complex():
-        return y + _real_linear(lambda x: _mix_gather(
-            kind_spec, arrays, x, x.new_zeros(y.shape)), v)
-    dsrc, dwt, usrc, usg, rows = (arrays[i] for i in kind_spec[3:8])
-    dwt, usg = _promoted(dwt, v), _promoted(usg, v)
-    return mix_gather(v.to(dwt.dtype), y.to(dwt.dtype), dsrc, dwt, usrc,
-                      usg, rows)
+def take_rows(spec, arrays, rows):
+    """(spec, arrays, blocks) of the operator restricted to the output
+    rows ``rows(ddw)`` (a slice) of every block: the diagonal, every
+    dw-side part and every mix entry keep those rows, the up side stays
+    whole (parallel.hxv's local operator)."""
+    blocks, diag_idx, hup, hdw, mix, vtag = spec
+    arrays = list(arrays)
+    sls = [rows(ddw) for ddw, _ in blocks]
+    for i, sl in zip(diag_idx, sls):
+        arrays[i] = arrays[i][sl].contiguous()
+    hdw = tuple(p.take_rows(arrays, sl) for p, sl in zip(hdw, sls))
+    mix = tuple(m.take_rows(arrays, sls[m.dst]) for m in mix)
+    blocks = tuple((sl.stop - sl.start, dup)
+                   for sl, (_, dup) in zip(sls, blocks))
+    return (blocks, diag_idx, hup, hdw, mix, vtag), tuple(arrays), blocks
 
 
 def apply_op(spec, arrays, V, gather=None):
@@ -963,54 +1137,28 @@ def apply_op(spec, arrays, V, gather=None):
     ``hamiltonian.mix_gather_terms`` the terms its "pmix" entries apply;
     an operator without any, or a matvec replayed from a CUDA graph
     (lanczos._Graphed), records none."""
-    blocks, diag_idx, hup_spec, hdw_spec, mix_spec, _ = spec
+    blocks, diag_idx, hup, hdw, mix, _ = spec
     full = {}
 
-    def rows_of(bi):
-        if gather is None:
+    def read(bi, rows=True):
+        """Block bi: all its rows (gathered once), or the local ones."""
+        if gather is None or not rows:
             return V[bi]
         if bi not in full:
             full[bi] = gather(V[bi])
         return full[bi]
 
     Y = []
-    for bi, (ddw, dup) in enumerate(blocks):
-        v = V[bi]
-        y = arrays[diag_idx[bi]] * v
-        if hdw_spec[bi][0] == "ozf":
-            _, nsl, bits, i_dw, i_upT = hdw_spec[bi]
-            Y.append(y + _real_linear(lambda x: _fused(
-                arrays[i_dw], arrays[i_upT], x, nsl, bits), v))
-            continue
-        r = _app(hup_spec[bi], arrays, v, "right", dup)
-        if r is not None:
-            y = y + r
-        if hdw_spec[bi][0] != "none":
-            r = _app(hdw_spec[bi], arrays, rows_of(bi), "left", ddw)
-            y = y + r
+    for bi, shape in enumerate(blocks):
+        y = arrays[diag_idx[bi]] * V[bi]
+        if not isinstance(hup[bi], Empty):
+            y = y + hup[bi].product(arrays, V[bi], "right", shape)
+        if not isinstance(hdw[bi], Empty):
+            y = y + hdw[bi].product(arrays, read(bi), "left", shape)
         Y.append(y)
-    if not mix_spec:
+    if not mix:
         return tuple(Y)
     with timer.span("hamiltonian.mix", V[0]):
-        for (src, dst, up, dw, cidx) in mix_spec:
-            v = V[src] if dw is None and (up is None or up[0] not in
-                                          ("bmix", "pmix")) \
-                else rows_of(src)
-            if up is not None and up[0] == "pmix":
-                timer.count("hamiltonian.mix_gather_terms", up[1])
-                Y[dst] = _mix_gather(up, arrays, v, Y[dst])
-                continue
-            if up is not None and up[0] == "bmix":
-                Y[dst] = Y[dst] + _mix_batched(arrays[up[1]], arrays[up[2]],
-                                               arrays[cidx], v)
-                continue
-            if up is not None:
-                v = _app(up, arrays, v, "right", blocks[dst][1])
-                if v is None:
-                    continue
-            if dw is not None:
-                v = _app(dw, arrays, v, "left", blocks[dst][0])
-                if v is None:
-                    continue
-            Y[dst] = Y[dst] + arrays[cidx] * v
+        for m in mix:
+            Y[m.dst] = m.add(arrays, read, Y[m.dst], blocks[m.dst])
     return tuple(Y)

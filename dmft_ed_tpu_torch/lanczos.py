@@ -45,7 +45,8 @@ import numpy as np
 import torch
 
 from . import kernels, timer
-from .hamiltonian import apply_op, flatten_blocks, unflatten_blocks
+from .hamiltonian import (apply_op, flatten_blocks, graphable,
+                          unflatten_blocks)
 from .parallel.hxv import row_gather
 from .parallel.mesh import rows_sharded, site_chunk, sites_sharded
 
@@ -129,13 +130,6 @@ def _lanczos_tridiag_impl(matvec, v0, niter: int, mesh=None):
     return alphas, betas_out, nsteps
 
 
-def _spec_kinds(spec) -> set:
-    """Every term kind of an operator spec (hamiltonian.make_matvec_op)."""
-    _, _, hup, hdw, mix, _ = spec
-    return {k[0] for k in hup + hdw} | {t[0] for m in mix
-                                       for t in (m[2], m[3]) if t}
-
-
 class _Graphed:
     """A matvec replayed from one CUDA graph per input shape and dtype.
 
@@ -187,19 +181,20 @@ def _matvec_span(x):
 
 
 def _op_matvec(spec, blocks, arrays, mesh=None):
-    """The sector matvec on flat vectors. On a card, a multi-block
-    operator without Ozaki terms (superc, nonsu2) replays from a CUDA
-    graph (_Graphed): the same kernels, bitwise the same result. An
-    operator with Ozaki terms (whose kernel launches through ctypes)
-    stays eager, as does a row-sharded one (its gathers are collectives).
-    Leading batch axes of x pass through."""
+    """The sector matvec on flat vectors. On a card, an operator that
+    hamiltonian.graphable admits (several blocks, no Ozaki part: superc,
+    nonsu2) replays from a CUDA graph (_Graphed): the same kernels,
+    bitwise the same result. An operator with Ozaki parts stays eager: its
+    matvec records the ``ozaki.split`` spans that a replay would not, and
+    its capture has not been tried on a card. A row-sharded operator
+    stays eager too (its gathers are collectives). Leading batch axes of
+    x pass through."""
     gather = row_gather(mesh)
 
     def mv(x):
         return flatten_blocks(apply_op(spec, arrays,
                                        unflatten_blocks(x, blocks), gather))
-    if len(blocks) > 1 and arrays and arrays[0].is_cuda and gather is None \
-            and not _spec_kinds(spec) & {"ozl", "ozr", "ozf"}:
+    if graphable(spec) and arrays and arrays[0].is_cuda and gather is None:
         return _Graphed(mv)
 
     def eager(x):

@@ -9,8 +9,8 @@ each rank keeps the rows it owns of every block, V_b[rows, dup]. Its
 **local operator** (``sharded_sector_op``) holds
 
   * the diagonal's rows, and the dw-side operators' rows (Hdw, and the dw
-    factor of every mix term whose destination rows land on the rank; a
-    "pmix" entry's dw-side tables and its compact rows);
+    factor of every mix entry whose destination rows land on the rank;
+    ``hamiltonian.take_rows`` splits each kind);
   * the up-side operators whole.
 
 A matvec (``hamiltonian.apply_op`` with ``gather``) all-gathers each block
@@ -32,8 +32,8 @@ import torch
 
 from ..config import EDConfig
 from ..sectors import Block, Sector
-from ..hamiltonian import (SectorHamiltonian, SpinCOO, make_matvec_op,
-                           np_unflatten_blocks)
+from ..hamiltonian import (SectorHamiltonian, SpinCOO, is_complex,
+                           make_matvec_op, np_unflatten_blocks, take_rows)
 from .mesh import Mesh, row_slice
 
 
@@ -98,65 +98,12 @@ def unpad_blocks_to_flat(V, sector: Sector):
         else np.concatenate(parts, axis=-1)
 
 
-def _take_rows(kind_spec, arrays, sl: slice):
-    """One dw-side operator of the spec restricted to the output rows `sl`
-    (arrays is updated in place); returns its new kind spec."""
-    kind = kind_spec[0]
-    if kind == "dense":
-        arrays[kind_spec[1]] = arrays[kind_spec[1]][sl].contiguous()
-        return kind_spec
-    if kind == "ozl":
-        i_dg, i_sc = kind_spec[3], kind_spec[4]
-        arrays[i_dg] = arrays[i_dg][:, sl].contiguous()
-        arrays[i_sc] = arrays[i_sc][sl].contiguous()
-        return kind_spec
-    if kind == "coo":
-        # kept as "coo" even where no entry lands on this rank: whether a
-        # matvec gathers a block must not differ between the ranks
-        ir, ic, iv = kind_spec[1:4]
-        rows = arrays[ir]
-        keep = (rows >= sl.start) & (rows < sl.stop)
-        arrays[ir] = rows[keep] - sl.start
-        arrays[ic] = arrays[ic][keep]
-        arrays[iv] = arrays[iv][keep]
-        return kind_spec
-    if kind == "none":
-        return kind_spec
-    raise ValueError(f"row-sharded operator: no row split for {kind!r}")
-
-
 def local_operator(spec, arrays, mesh: Mesh):
     """(spec, arrays, blocks) of the padded operator restricted to this
-    rank's rows: the diagonal and the dw-side operators keep the rank's
-    output rows, the up side stays whole; blocks become [rows, dup]."""
-    blocks, diag_idx, hup_spec, hdw_spec, mix_spec, vtag = spec
-    arrays = list(arrays)
-    sls = [row_slice(mesh, ddw) for ddw, _ in blocks]
-    for bi, i in enumerate(diag_idx):
-        arrays[i] = arrays[i][sls[bi]].contiguous()
-    hdw_l = tuple(_take_rows(s, arrays, sls[bi])
-                  for bi, s in enumerate(hdw_spec))
-    mix_l = []
-    for (src, dst, up, dw, cidx) in mix_spec:
-        if up is not None and up[0] == "pmix":
-            # the dw-side tables keep the rank's destination rows (their
-            # sources index the gathered block); the compact rows are the
-            # rank's local rows that some term writes
-            i_ds, i_dw, i_rows = up[3], up[4], up[7]
-            arrays[i_ds] = arrays[i_ds][:, sls[dst]].contiguous()
-            arrays[i_dw] = arrays[i_dw][:, sls[dst]].contiguous()
-            rows = torch.nonzero((arrays[i_ds] >= 0).any(0)).flatten()
-            arrays[i_rows] = rows.to(torch.int32)
-            up = ("pmix", up[1], int(rows.numel())) + up[3:]
-        elif up is not None and up[0] == "bmix":
-            arrays[up[2]] = arrays[up[2]][:, sls[dst]].contiguous()
-        elif dw is not None:
-            dw = _take_rows(dw, arrays, sls[dst])
-        mix_l.append((src, dst, up, dw, cidx))
-    blocks_l = tuple((s.stop - s.start, dup)
-                     for s, (_, dup) in zip(sls, blocks))
-    spec_l = (blocks_l, diag_idx, hup_spec, hdw_l, tuple(mix_l), vtag)
-    return spec_l, tuple(arrays), blocks_l
+    rank's rows (hamiltonian.take_rows): the diagonal and the dw-side
+    operators keep the rank's output rows, the up side stays whole;
+    blocks become [rows, dup]."""
+    return take_rows(spec, arrays, lambda ddw: row_slice(mesh, ddw))
 
 
 def sharded_sector_op(ham: SectorHamiltonian, cfg: EDConfig, mesh: Mesh):
@@ -218,7 +165,7 @@ def solve_sector_sharded(cfg: EDConfig, ham: SectorHamiltonian, neigen: int,
                            lanczos_tridiag_op, tridiag_eigh)
     sec = ham.sector
     spec, arrays, blocks, sec_p = sharded_sector_op(ham, cfg, mesh)
-    cplx = spec[-1].startswith("complex")
+    cplx = is_complex(spec)
     if v0 is None:
         v0 = rng.normal(size=sec.dim)
         if cplx:

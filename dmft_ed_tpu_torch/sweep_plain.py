@@ -29,8 +29,7 @@ import numpy as np
 import torch
 
 from .config import EDConfig
-from .hamiltonian import (SectorHamiltonian, _dense_apply, _ozaki_params,
-                          _rdtype, _vdtype)
+from .hamiltonian import Encoder, SectorHamiltonian
 from .lanczos import _pdot_pair, _real_dtype, _BREAKDOWN
 
 
@@ -50,80 +49,58 @@ def sweep_supported(cfg: EDConfig, hams: List[SectorHamiltonian]) -> bool:
 
 def make_sweep_op(cfg: EDConfig, hams: List[SectorHamiltonian], device):
     """(spec, arrays) for the whole-sweep collection matvec: spec holds the
-    per-sector (ddw, dup, dw_gid, up_gid) and the per-group operator slots;
-    arrays the device tensors (per-group operators + diagonal factors, or
-    per-sector dense diagonals where a sector has no factors)."""
-    flags = [_vdtype(h, cfg) for h in hams]
-    is_cplx = any(f[0] for f in flags)
-    vdtype = next((f[1] for f in flags if f[0]), flags[0][1])
-    rdtype = _rdtype(cfg)
-    ozaki_n, ozaki_b = _ozaki_params(cfg, is_cplx)
-
-    arrays = []
-
-    def push(*arrs):
-        i0 = len(arrays)
-        arrays.extend(arrs)
-        return tuple(range(i0, len(arrays)))
-
-    def dev(a, dtype):
-        return torch.as_tensor(np.asarray(a), device=device).to(dtype)
-
+    per-sector (ddw, dup, dw_gid, up_gid) and one spin-part record per
+    group (hamiltonian's dense-class encoding, which sweep_supported
+    guarantees); arrays the device tensors (per-group operators + diagonal
+    factors, or per-sector dense diagonals where a sector has no
+    factors)."""
+    enc = Encoder(cfg, device, any(
+        np.issubdtype(h.dtype, np.complexfloating) for h in hams))
     have_fac = all(h.dfac is not None for h in hams)
     w_idx = c_idx = -1
     if have_fac:
-        w_idx = push(dev(hams[0].dfac[0], rdtype))[0]
-        c_idx = push(dev(hams[0].dfac[1], rdtype))[0]
+        w_idx, c_idx = enc.push(enc.dev(hams[0].dfac[0], enc.rdtype),
+                                enc.dev(hams[0].dfac[1], enc.rdtype))
     dw_groups, up_groups = {}, {}
     dw_ops, up_ops, dw_fac, up_fac = [], [], [], []
     sec_entries, diag_idx = [], []
     diag_seen = {}      # repeated sectors (GF chains) share one diagonal
-    from . import ozaki as _oz
     for h in hams:
         blk = h.sector.blocks[0]
         nup, ndw = blk.nup, blk.ndw
         if ndw not in dw_groups:
-            dense = h.hdw[0].to_dense()
-            if ozaki_n:
-                op = _oz.SlicedMatrix(dev(dense, rdtype), ozaki_n, ozaki_b)
-                dw_ops.append(("ozl",) + push(op.digits, op.scales))
-            else:
-                dw_ops.append(("dense",) + push(dev(dense, vdtype)))
+            dw_ops.append(enc.dense(h.hdw[0].to_dense(), "left"))
             if have_fac:
                 d_dw, _, nd, _ = h.dfac[2][0]
-                dw_fac.append(push(dev(d_dw, rdtype), dev(nd, rdtype)))
+                dw_fac.append(enc.push(enc.dev(d_dw, enc.rdtype),
+                                       enc.dev(nd, enc.rdtype)))
             dw_groups[ndw] = len(dw_ops) - 1
         if nup not in up_groups:
-            dense = h.hup[0].to_dense()
-            if ozaki_n:
-                op = _oz.SlicedRightOperand(dev(dense, rdtype).T, ozaki_n,
-                                            ozaki_b)
-                up_ops.append(("ozr",) + push(op.digits, op.scales))
-            else:
-                up_ops.append(("dense",) + push(dev(dense, vdtype)))
+            up_ops.append(enc.dense(h.hup[0].to_dense(), "right"))
             if have_fac:
                 _, d_up, _, nu = h.dfac[2][0]
-                up_fac.append(push(dev(d_up, rdtype), dev(nu, rdtype)))
+                up_fac.append(enc.push(enc.dev(d_up, enc.rdtype),
+                                       enc.dev(nu, enc.rdtype)))
             up_groups[nup] = len(up_ops) - 1
         if not have_fac:
             if id(h) not in diag_seen:
-                diag_seen[id(h)] = push(dev(h.diag[0], rdtype))[0]
+                diag_seen[id(h)] = enc.push(enc.dev(h.diag[0],
+                                                    enc.rdtype))[0]
             diag_idx.append(diag_seen[id(h)])
         sec_entries.append((blk.ddw, blk.dup, dw_groups[ndw],
                             up_groups[nup]))
     spec = (tuple(sec_entries), tuple(diag_idx), tuple(dw_ops),
-            tuple(up_ops), str(vdtype).replace("torch.", ""), ozaki_n,
-            ozaki_b,
+            tuple(up_ops), str(enc.vdtype).replace("torch.", ""), enc.nsl,
+            enc.bits,
             (w_idx, c_idx, tuple(dw_fac), tuple(up_fac)) if have_fac
             else None)
-    return spec, tuple(arrays)
+    return spec, tuple(enc.arrays)
 
 
-def _sweep_applier(spec):
+def _sweep_applier(sweep):
     """(prepare, matvec) of the collection operator: prepare(arrays) gives
     the per-sector dense diagonals, matvec(arrays, Ds, V) the products."""
-    (sec_entries, diag_idx, dw_ops, up_ops, _, ozaki_n, ozaki_b,
-     fac) = spec
+    sec_entries, diag_idx, dw_ops, up_ops, _, _, _, fac = sweep
     dw_members = [[] for _ in dw_ops]
     up_members = [[] for _ in up_ops]
     for s, (_, _, dg, ug) in enumerate(sec_entries):
@@ -151,42 +128,23 @@ def _sweep_applier(spec):
         return tuple(Ds)
 
     def matvec(arrays, Ds, V):
-        from . import ozaki as _oz
         Y = [Ds[s] * V[s] for s in range(len(sec_entries))]
-        # dw family: one wide product per n_dw group
-        for g, mem in enumerate(dw_members):
-            if not mem:
-                continue
-            C = torch.cat([V[s] for s in mem], dim=1) if len(mem) > 1 \
-                else V[mem[0]]
-            if dw_ops[g][0] == "ozl":
-                R = _oz.sliced_matmul(arrays[dw_ops[g][1]],
-                                      arrays[dw_ops[g][2]], C, ozaki_n,
-                                      ozaki_b)
-            else:
-                R = _dense_apply(arrays[dw_ops[g][1]], C, "left")
-            off = 0
-            for s in mem:
-                dup = sec_entries[s][1]
-                Y[s] = Y[s] + R[:, off:off + dup]
-                off += dup
-        # up family: one wide product per n_up group
-        for g, mem in enumerate(up_members):
-            if not mem:
-                continue
-            C = torch.cat([V[s] for s in mem], dim=0) if len(mem) > 1 \
-                else V[mem[0]]
-            if up_ops[g][0] == "ozr":
-                R = _oz.right_sliced_matmul(C, arrays[up_ops[g][1]],
-                                            arrays[up_ops[g][2]], ozaki_n,
-                                            ozaki_b)
-            else:
-                R = _dense_apply(arrays[up_ops[g][1]], C, "right")
-            off = 0
-            for s in mem:
-                ddw = sec_entries[s][0]
-                Y[s] = Y[s] + R[off:off + ddw]
-                off += ddw
+        # the dw family, one wide product per n_dw group over the members
+        # side by side (axis 1), then the up family, one per n_up group
+        # over the members stacked (axis 0)
+        for ops, members, side, ax in ((dw_ops, dw_members, "left", 1),
+                                       (up_ops, up_members, "right", 0)):
+            for op, mem in zip(ops, members):
+                if not mem:
+                    continue
+                C = torch.cat([V[s] for s in mem], dim=ax) if len(mem) > 1 \
+                    else V[mem[0]]
+                R = op.product(arrays, C, side, None)
+                off = 0
+                for s in mem:
+                    n = sec_entries[s][ax]
+                    Y[s] = Y[s] + R.narrow(ax, off, n)
+                    off += n
         return Y
 
     return prepare, matvec

@@ -39,6 +39,7 @@ import dmft_ed_tpu_torch.chi as tchi
 import dmft_ed_tpu_torch.config as tconfig
 import dmft_ed_tpu_torch.diag as tdiag
 import dmft_ed_tpu_torch.gf_common as tgf
+import dmft_ed_tpu_torch.hamiltonian as tham
 import dmft_ed_tpu_torch.solver as tsolver
 
 import test_chi as oracle
@@ -158,8 +159,10 @@ def _spy_ragged(monkeypatch):
     orig = tgf.ResolventBatch._run_ragged_stack
 
     def spy(self, spec_p, blocks_p, sub, *a):
-        seen.append((spec_p[5], {str(j[0].dtype) for e, _ in sub
-                                 for j in e[4]}, spec_p[3][0][0]))
+        # a single block: its dw side is the last spin part
+        seen.append((tham.vector_dtype(spec_p),
+                     {str(j[0].dtype) for e, _ in sub for j in e[4]},
+                     tham.spin_parts(spec_p)[-1].kind))
         return orig(self, spec_p, blocks_p, sub, *a)
     monkeypatch.setattr(tgf.ResolventBatch, "_run_ragged_stack", spy)
     return seen

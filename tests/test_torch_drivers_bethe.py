@@ -371,7 +371,8 @@ def test_hund_hybrid_operator_ozaki(monkeypatch):
     for prec in ("ozaki5x7", "native"):
         spec, arrays, blocks = tham.make_matvec_op(
             ht, tc.replace(matmul_precision=prec), "cpu")
-        assert {m[2][0] for m in spec[4]} == (
+        assert {m.up.kind if m.kind == "chain" else m.kind
+                for m in tham.mix_entries(spec)} == (
             {"ozr"} if prec == "ozaki5x7" else {"pmix"})
         out[prec] = tham.flatten_blocks(tham.apply_op(
             spec, arrays, tham.unflatten_blocks(torch.from_numpy(x),

@@ -78,9 +78,9 @@ def test_apply_op_vs_jax(model, prec):
     for sec in _largest(jsectors.sector_table(jcfg), 2):
         hj, spec, ys, yb = _apply_both(jcfg, tcfg, jb, tb, hloc, rng,
                                        sec.index)
-        kinds = {k[0] for k in spec[2] + spec[3]}
+        kinds = {p.kind for p in tham.spin_parts(spec)}
         assert kinds == ({"ozr", "ozl"} if prec != "native" else {"dense"})
-        assert bool(spec[4]) == (model == "norb2_mix")
+        assert bool(tham.mix_entries(spec)) == (model == "norb2_mix")
         for i, (yj, yt) in enumerate(ys):
             scale = np.max(np.abs(yj))
             assert np.max(np.abs(yt - yj)) <= TOL * scale
@@ -96,7 +96,7 @@ def test_apply_op_coo_class_vs_jax(model):
                                            dense_matmul_threshold=4)
     sec = _largest(jsectors.sector_table(jcfg))[0]
     _, spec, ys, yb = _apply_both(jcfg, tcfg, jb, tb, hloc, rng, sec.index)
-    assert "coo" in {k[0] for k in spec[2] + spec[3]}
+    assert "coo" in {p.kind for p in tham.spin_parts(spec)}
     for i, (yj, yt) in enumerate(ys):
         scale = np.max(np.abs(yj))
         assert np.max(np.abs(yt - yj)) <= TOL * scale
@@ -114,6 +114,98 @@ def test_apply_op_matches_dense():
         spec, arrays, tham.unflatten_blocks(torch.from_numpy(x), blocks)))
     ref = tham.assemble_dense(ht) @ x
     assert np.max(np.abs(y.numpy() - ref)) <= TOL * np.max(np.abs(ref))
+
+
+HUND = dict(norb=2, nbath=3, nspin=1, bath_type="hybrid", uloc=(2.0, 2.0),
+            ust=1.5, jh=0.25, jx=0.25, jp=0.25)
+
+# one case per term kind of hamiltonian.py: (the kind the accessor must
+# report, the model, cfg fields, make_matvec_op's fused, whether every mix
+# term is refused as a signed permutation, the padded form)
+KIND_CASES = {
+    "none": ("none", "norb1", dict(dense_matmul_threshold=1), None, False,
+             False),
+    "dense": ("dense", "norb1", {}, None, False, False),
+    "dense-float32": ("dense", "norb1", dict(dtype="float32"), None, False,
+                      False),
+    "ozl/ozr": ("ozl", "norb1", dict(matmul_precision="ozaki5x7"), False,
+                False, False),
+    "ozf": ("ozf", "norb1", dict(matmul_precision="ozaki5x7"), True, False,
+            False),
+    "coo": ("coo", "norb1", dict(dense_matmul_threshold=4), None, False,
+            False),
+    "pmix": ("pmix", "hund", {}, None, False, False),
+    "pmix-float32": ("pmix", "hund", dict(dtype="float32"), None, False,
+                     False),
+    "bmix": ("bmix", "hund", {}, None, True, False),
+    "chain": ("chain", "hund", dict(dense_matmul_threshold=4), None, True,
+              False),
+    "chain-ozaki": ("chain", "hund", dict(matmul_precision="ozaki5x7"),
+                    False, False, False),
+    "padded": ("coo", "norb1", dict(dense_matmul_threshold=8), None, False,
+               True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(KIND_CASES))
+def test_apply_op_of_each_kind(case, monkeypatch):
+    """Each term kind (hamiltonian.py's records) against the assembled
+    dense H: apply_op on a vector and a batch of two within 1e-12 of
+    max|H x| in float64, 1e-5 in float32 and 1e-9 where Ozaki digits
+    enter (their truncation class; measured ~1e-10); op_kinds reports
+    the kind."""
+    kind, model, extra, fused, refuse, padded = KIND_CASES[case]
+    if model == "hund":
+        cfg = tconfig.EDConfig(**HUND, **extra).validate()
+        b = tbath.Bath(cfg)
+        b.e[0, :, :] = np.linspace(-1.0, 1.0, 3)
+        b.v[0, :, :] = np.random.default_rng(3).uniform(0.3, 0.7, (2, 3))
+        sec = tsectors.sector_table(cfg).get(3, 3)
+        hloc = np.zeros((1, 1, 2, 2))
+    else:
+        extra = dict(extra)
+        _, cfg, _, b, hloc, _ = _setup(
+            "norb1", extra.pop("matmul_precision", "native"), 7, **extra)
+        if kind == "none":          # no hopping: both spin parts empty
+            b.v[:] = 0.0
+        sec = tsectors.sector_table(cfg).get(2, 3)
+    ham = tham.build_sector_hamiltonian(cfg, sec, b, hloc)
+    if refuse:
+        monkeypatch.setattr(tham, "_signed_perm", lambda coo: False)
+    if padded:
+        blk = sec.blocks[0]
+        ddw, dup = blk.ddw + 3, blk.dup + 2
+        spec, arrays, blocks = tham.make_padded_matvec_op(
+            ham, cfg, ddw, dup, ham.hup[0].rows.size + 2,
+            ham.hdw[0].rows.size + 1, device="cpu")
+        assert blocks == ((ddw, dup),) and max(ddw, dup) > 8
+    else:
+        spec, arrays, blocks = tham.make_matvec_op(ham, cfg, "cpu",
+                                                   fused=fused)
+    assert kind in tham.op_kinds(spec)
+    if kind == "ozl":
+        assert "ozr" in tham.op_kinds(spec)
+    vdt = getattr(torch, tham.vector_dtype(spec))
+    H = tham.assemble_dense(ham)
+    tol = 1e-5 if cfg.dtype == "float32" else 1e-9 \
+        if cfg.matmul_precision != "native" else TOL
+    rng = np.random.default_rng(5)
+    for lead in ((), (2,)):
+        x = rng.standard_normal(lead + (sec.dim,))
+        if padded:
+            xp = np.zeros(lead + blocks[0])
+            xp[..., :blk.ddw, :blk.dup] = x.reshape(lead + (blk.ddw, blk.dup))
+            y = tham.apply_op(spec, arrays, (torch.as_tensor(xp).to(vdt),))[0]
+            assert not y[..., blk.ddw:, :].any()
+            assert not y[..., blk.dup:].any()
+            y = y[..., :blk.ddw, :blk.dup].reshape(lead + (-1,))
+        else:
+            y = tham.flatten_blocks(tham.apply_op(spec, arrays,
+                                                  tham.unflatten_blocks(
+                torch.as_tensor(x).to(vdt), blocks)))
+        want = x @ H.T
+        err = np.abs(y.double().numpy() - want).max()
+        assert err <= tol * np.abs(want).max()
 
 
 @pytest.mark.parametrize("prec", ["native", "ozaki5x7"])

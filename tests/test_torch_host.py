@@ -276,3 +276,80 @@ def test_slow_port_tests_import_only_the_port():
         for mod in _imports(f):
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "dmft_ed_tpu"), (f, mod)
+
+
+# The sector operator's term kinds (hamiltonian.py's records) and the
+# fields only a record has (an Ozaki record's digits and scales share
+# their names with ozaki.SlicedMatrix's): no module but hamiltonian.py
+# names either.
+KIND_TAGS = {"none", "dense", "ozl", "ozr", "ozf", "coo", "pmix", "bmix",
+             "chain"}
+RECORD_FIELDS = {"kind", "dat", "hupT", "nterms", "nrows", "tables", "upT"}
+
+
+def _const_index(s):
+    """A subscript by a constant: spec[4], spec[-1], spec[:4]."""
+    if isinstance(s, ast.UnaryOp):
+        s = s.operand
+    if isinstance(s, ast.Slice):
+        return all(b is None or _const_index(b)
+                   for b in (s.lower, s.upper, s.step))
+    return isinstance(s, ast.Constant) and isinstance(s.value, int)
+
+
+def _names_spec(e):
+    return isinstance(e, ast.Name) and "spec" in e.id
+
+
+def _format_reads(src):
+    """(line, what) of every place `src` reads the operator format itself:
+    a kind tag as a string (docstrings aside), a record-only field, a
+    spec-named value subscripted by a constant or unpacked into names."""
+    tree = ast.parse(src)
+    docs = {id(n.body[0].value) for n in ast.walk(tree)
+            if isinstance(n, (ast.Module, ast.ClassDef, ast.FunctionDef))
+            and n.body and isinstance(n.body[0], ast.Expr)
+            and isinstance(n.body[0].value, ast.Constant)}
+    for n in ast.walk(tree):
+        if isinstance(n, ast.Constant) and n.value in KIND_TAGS \
+                and id(n) not in docs:
+            yield n.lineno, f"kind {n.value!r}"
+        elif isinstance(n, ast.Attribute) and n.attr in RECORD_FIELDS:
+            yield n.lineno, f"field .{n.attr}"
+        elif isinstance(n, ast.Subscript) and _names_spec(n.value) \
+                and _const_index(n.slice):
+            yield n.lineno, f"{n.value.id}[...]"
+        elif isinstance(n, ast.Assign) and _names_spec(n.value) and \
+                isinstance(n.targets[0], (ast.Tuple, ast.List)):
+            yield n.lineno, f"unpacks {n.value.id}"
+        elif isinstance(n, ast.For) and _names_spec(n.iter) and \
+                isinstance(n.target, (ast.Tuple, ast.List)):
+            yield n.lineno, f"unpacks the entries of {n.iter.id}"
+
+
+def test_ast_only_hamiltonian_reads_the_operator_format():
+    """No module of the port but hamiltonian.py compares against a term
+    kind or reads inside the operator spec or a term record: the others
+    ask hamiltonian's accessors (is_complex, vector_dtype, mix_entries,
+    graphable, take_rows). Each kind is hamiltonian's, and the scan
+    finds each form of read in a sample."""
+    ham_src = (PORT / "hamiltonian.py").read_text()
+    for tag in KIND_TAGS:
+        assert f'"{tag}"' in ham_src, tag
+    sample = (
+        "def f(spec, arrays, mix_spec, kind_spec, m):\n"
+        "    cplx = spec[-1].startswith('complex')\n"
+        "    blocks, diag_idx, hup, hdw, mix, vtag = spec\n"
+        "    for (src, dst, up, dw, cidx) in mix_spec:\n"
+        "        pass\n"
+        "    if kind_spec[0] in ('ozl', 'ozr'):\n"
+        "        return m.tables, spec[:4]\n")
+    assert [w for _, w in _format_reads(sample)] != [] and {
+        w.split()[0] for _, w in _format_reads(sample)} == {
+        "spec[...]", "unpacks", "kind", "kind_spec[...]", "field"}
+    files = sorted(PORT.rglob("*.py"))
+    assert len(files) > 20
+    bad = [(str(f.relative_to(REPO)), line, what) for f in files
+           if f.name != "hamiltonian.py" or f.parent != PORT
+           for line, what in _format_reads(f.read_text())]
+    assert bad == []

@@ -122,7 +122,7 @@ def test_matvec(nbath, sec):
     the reference's matvec (the mix terms as signed gathers) on seeded
     random vectors."""
     _, s, _, op = _port(nbath, sec)
-    assert [m[2][0] for m in op[0][4]] == ["pmix"]
+    assert [m.kind for m in tham.mix_entries(op[0])] == ["pmix"]
     ref = _ref(nbath, sec)
     rng = np.random.default_rng(sum(sec) + nbath)
     for _ in range(3):
@@ -155,7 +155,8 @@ def test_without_jx_and_jp_the_mix_terms_vanish(sec):
     matrices still agree."""
     _, _, ham, op = _port(4, sec, jx=0.0, jp=0.0)
     ref = _ref(4, sec, jx=0.0, jp=0.0)
-    assert ham.mix == [] and op[0][4] == () and ref.gathers == []
+    assert ham.mix == [] and tham.mix_entries(op[0]) == () \
+        and ref.gathers == []
     assert np.abs(tham.assemble_dense(ham) - ref.dense()).max() \
         <= ENTRY_TOL
 
@@ -203,6 +204,6 @@ def test_mix_span():
     assert all(torch.equal(y, off) for y in ys)
     timer.reset()
     _, s1, _, op1 = _port(4, (3, 3), norb=1)
-    assert op1[0][4] == ()
+    assert tham.mix_entries(op1[0]) == ()
     _traced_matvecs(op1, torch.ones(s1.dim, dtype=torch.float64), 2)
     assert timer.totals() == {}

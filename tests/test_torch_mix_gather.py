@@ -95,7 +95,9 @@ def _apply(op, x):
 
 
 def _kinds(op):
-    return [m[2][0] for m in op[0][4]]
+    """Each mix entry's kind; a per-term chain's is its up part's."""
+    return [m.up.kind if m.kind == "chain" else m.kind
+            for m in tham.mix_entries(op[0])]
 
 
 CASES = [("hund", 2, (2, 2), "float64", ()),
@@ -123,7 +125,7 @@ def test_pmix_equals_bmix(model, nbath, sector, dtype, lead, monkeypatch):
     pairs = {(t.src, t.dst) for t in ham.mix}
     assert _kinds(op) == ["pmix"] * len(pairs) and len(pairs) >= 1
     assert _kinds(dense) == ["bmix"] * len(pairs)
-    assert sum(m[2][1] for m in op[0][4]) == len(ham.mix)
+    assert sum(m.nterms for m in tham.mix_entries(op[0])) == len(ham.mix)
     # the dense stacks are [L, m, m]; nothing of "pmix" is 3-D
     assert all(a.dim() <= 2 for a in op[1])
     assert any(a.dim() == 3 for a in dense[1])
@@ -149,7 +151,7 @@ def test_pmix_above_the_dense_threshold(nbath, sector, monkeypatch):
     cfg, sec, ham = _hund(nbath, sector, dense_matmul_threshold=4)
     op = tham.make_matvec_op(ham, cfg, "cpu")
     coo = _dense_op(monkeypatch, ham, cfg)
-    assert "coo" in {k[0] for k in op[0][2] + op[0][3]}
+    assert "coo" in {p.kind for p in tham.spin_parts(op[0])}
     assert _kinds(op) == ["pmix"]
     assert _kinds(coo) == ["coo"] * len(ham.mix)
     x = torch.as_tensor(np.random.default_rng(nbath).standard_normal(
@@ -196,11 +198,11 @@ def test_row_sharded_local_operator(model, sector, monkeypatch):
             spec_l, arrays_l, _ = local_operator(sp, ar, mesh)
             got[kind] = tham.apply_op(spec_l, arrays_l, local,
                                       gather=lambda v: by_id[id(v)])
-            for m in spec_l[4]:
-                if m[2][0] == "pmix":
-                    assert m[2][2] == arrays_l[m[2][7]].numel()
-                    assert arrays_l[m[2][3]].shape[1] == \
-                        sls[m[1]].stop - sls[m[1]].start
+            for m in tham.mix_entries(spec_l):
+                if m.kind == "pmix":
+                    assert m.nrows == arrays_l[m.tables[4]].numel()
+                    assert arrays_l[m.tables[0]].shape[1] == \
+                        sls[m.dst].stop - sls[m.dst].start
         for y, yd, f, sl in zip(got["pmix"], got["bmix"], full, sls):
             assert torch.equal(y, yd)
             assert float((y - f[:, sl]).abs().max()) <= 1e-14 * scale
@@ -215,7 +217,8 @@ def test_identity_spin_part(side, monkeypatch):
     cfg, sec, ham = _hund(3, (3, 3))
     ham.mix[0] = ham.mix[0]._replace(**{side: None})
     op = tham.make_matvec_op(ham, cfg, "cpu")
-    assert _kinds(op) == ["pmix"] and op[0][4][0][2][1] == len(ham.mix)
+    assert _kinds(op) == ["pmix"] \
+        and tham.mix_entries(op[0])[0].nterms == len(ham.mix)
     x = torch.as_tensor(np.random.default_rng(6).standard_normal(sec.dim))
     got = _apply(op, x).numpy()
     want = tham.assemble_dense(ham) @ x.numpy()
@@ -300,11 +303,12 @@ def test_other_terms_keep_their_encoding(kind, monkeypatch):
         assert set(kinds) == {"ozr"} and len(kinds) == len(ham.mix)
     else:
         assert kinds == ["pmix", "bmix"]
-        assert [m[2][1] for m in op[0][4] if m[2][0] == "pmix"] \
-            == [len(ham.mix) - 1]
+        assert [m.nterms for m in tham.mix_entries(op[0])
+                if m.kind == "pmix"] == [len(ham.mix) - 1]
     rng = np.random.default_rng(8)
     x = rng.standard_normal(sec.dim)
-    got = _apply(op, torch.as_tensor(x).to(getattr(torch, op[0][-1])))
+    got = _apply(op, torch.as_tensor(x).to(
+        getattr(torch, tham.vector_dtype(op[0]))))
     want = tham.assemble_dense(ham) @ x
     assert np.abs(got.numpy() - want).max() <= 1e-9 * np.abs(want).max()
 
@@ -404,8 +408,7 @@ def test_kernel_on_the_hund_cell_operator(dtype, monkeypatch):
     op = tham.make_matvec_op(ham, cfg, dev)
     assert _kinds(op) == ["pmix"]
     spec, arrays, blocks = op
-    ent = spec[4][0][2]
-    tables = [arrays[i] for i in ent[3:8]]
+    tables = [arrays[i] for i in tham.mix_entries(spec)[0].tables]
     dense = _dense_op(monkeypatch, ham, cfg, dev)
     g = torch.Generator(device=dev).manual_seed(11)
     for lead in ((), (2,)):
@@ -434,7 +437,7 @@ def test_graph_replay_of_a_superc_operator():
     assert set(_kinds((spec, arrays, blocks))) == {"pmix"}
     mv = tlanczos._op_matvec(spec, blocks, arrays)
     assert isinstance(mv, tlanczos._Graphed)
-    npm = len(spec[4])
+    npm = len(tham.mix_entries(spec))
     g = torch.Generator(device=dev).manual_seed(7)
     for shape in ((sec.dim,), (3, sec.dim)):
         for i in range(2):

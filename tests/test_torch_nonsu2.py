@@ -174,7 +174,7 @@ def _check_apply(jcfg, tcfg, js, ts, jb, tb, hloc, rng):
     assert np.issubdtype(ht.dtype, np.complexfloating)
     sj, aj, _ = jham.make_matvec_op(hj, jcfg)
     st, at, bt = tham.make_matvec_op(ht, tcfg, "cpu")
-    assert {m[2][0] for m in st[4]} == {"bmix"}
+    assert {m.kind for m in tham.mix_entries(st)} == {"bmix"}
     H = tham.assemble_dense(ht)
     for _ in range(2):
         xi = rng.normal(size=ts.dim) + 1j * rng.normal(size=ts.dim)

@@ -211,7 +211,7 @@ def test_real_ozaki_operator_on_complex_vector(fused, monkeypatch):
     jcfg, tcfg, jb, tb, hloc = _setup(**KINDS["ozaki"])
     _, ht = _hams(jcfg, tcfg, jb, tb, hloc, (2, 2))
     spec, arrays, blocks = tham.make_matvec_op(ht, tcfg, "cpu")
-    kinds = (spec[2][0][0], spec[3][0][0])
+    kinds = tuple(p.kind for p in tham.spin_parts(spec))
     assert kinds == (("ozf", "ozf") if fused else ("ozr", "ozl"))
     rng = np.random.default_rng(6)
     dim = ht.sector.dim

@@ -154,12 +154,13 @@ def test_apply_op_superc_vs_jax(prec):
         assert len(ts.blocks) > 1 and len(ht.mix) >= 2 * jcfg.nbath
         sj, aj, _ = jham.make_matvec_op(hj, jcfg)
         st, at, bt = tham.make_matvec_op(ht, tcfg, "cpu")
-        kinds = {m[2][0] for m in st[4]} | {m[3][0] for m in st[4]
-                                           if m[3] is not None}
+        kinds = {p.kind for m in tham.mix_entries(st)
+                 for p in ((m.up, m.dw) if m.kind == "chain" else (m,))
+                 if p is not None}
         # native: the Nbath pairing terms of each block pair in one
         # signed-gather entry; ozaki5x7: one Ozaki product per spin part
         assert kinds == ({"ozr", "ozl"} if prec != "native" else {"pmix"})
-        assert len(st[4]) == (len(ht.mix) if prec != "native"
+        assert len(tham.mix_entries(st)) == (len(ht.mix) if prec != "native"
                               else len(ht.mix) // jcfg.nbath)
         H = tham.assemble_dense(ht)
         for xi in rng.normal(size=(3, ts.dim)):
